@@ -1,0 +1,7 @@
+from .device import Device
+from .layer import Layer
+from .mesh import Mesh, MeshOperators
+from .mesh_generation import generate_mesh
+from .polygon import Polygon
+
+__all__ = ["Device", "Layer", "Mesh", "MeshOperators", "Polygon", "generate_mesh"]

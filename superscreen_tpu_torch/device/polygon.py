@@ -1,0 +1,349 @@
+"""Planar polygon primitive.
+
+Counterpart of ``superscreen_tpu/device/polygon.py`` without plotting or
+HDF5.  Point queries use :func:`points_in_ring`, a NumPy crossing test
+that reproduces matplotlib's ``Path.contains_points`` decision for points
+on the boundary, so mesh index sets agree with the JAX package exactly.
+"""
+
+import logging
+from copy import deepcopy
+from typing import Iterable, Optional, Tuple, Union
+
+import numpy as np
+
+from .. import polygon_ops as ops
+from ..geometry import close_curve
+from ..geometry import rotate as rotate_coords
+
+logger = logging.getLogger("device")
+
+__all__ = ["Polygon", "points_in_ring"]
+
+PolygonType = Union["Polygon", np.ndarray]
+
+#: Boolean operations understood by :meth:`Polygon._fold`.
+_BOOLEAN_OPS = frozenset(
+    {"union", "intersection", "difference", "symmetric_difference"}
+)
+
+
+def points_in_ring(ring: np.ndarray, points: np.ndarray) -> np.ndarray:
+    """Crossing-number test of ``points`` against the closed ``ring``.
+
+    The arithmetic is that of matplotlib's ``point_in_path_impl``
+    (``src/_path.h``) for a closed path with ``radius=0``: per edge
+    ``v0 -> v1``, a point with ``(y1 >= ty) != (y0 >= ty)`` toggles when
+    ``((y1 - ty) * (x0 - x1) >= (x1 - tx) * (y0 - y1)) == (y1 >= ty)``.
+    Evaluating the same float64 expressions decides points that lie on an
+    edge (hole and film outlines are mesh vertices) the same way.
+
+    Args:
+        ring: ``(m, 2)`` vertices; the last vertex closes back to the first.
+        points: ``(n, 2)`` query coordinates.
+
+    Returns:
+        ``(n,)`` boolean mask.
+    """
+    ring = np.asarray(ring, dtype=float)
+    points = np.atleast_2d(np.asarray(points, dtype=float))
+    tx, ty = points[:, 0], points[:, 1]
+    inside = np.zeros(len(points), dtype=bool)
+    if len(ring) < 3:
+        return inside
+    # A closed path's last vertex is replaced by its first (CLOSEPOLY).
+    verts = np.concatenate([ring[:-1], ring[:1]], axis=0)
+    yflag0 = verts[0, 1] >= ty
+    for (x0, y0), (x1, y1) in zip(verts[:-1], verts[1:]):
+        yflag1 = y1 >= ty
+        crosses = (yflag0 != yflag1) & (
+            ((y1 - ty) * (x0 - x1) >= (x1 - tx) * (y0 - y1)) == yflag1
+        )
+        inside ^= crosses
+        yflag0 = yflag1
+    return inside
+
+
+def _coerce_ring(points) -> np.ndarray:
+    """Normalize any accepted vertex input to a closed CCW ``(n, 2)`` ring,
+    raising ``ValueError`` for non-simple or degenerate boundaries."""
+    if isinstance(points, Polygon):
+        points = points.points
+    ring = np.asarray(points, dtype=float)
+    if ring.ndim != 2 or ring.shape[-1] != 2:
+        raise ValueError(f"Expected shape (n, 2), but got {ring.shape}.")
+    ring = ops.orient_ccw(ring)
+    if len(ring) < 3 or not ops.is_simple_polygon(ring):
+        raise ValueError(
+            "The given points do not define a valid simply-connected "
+            "polygon (the boundary may be self-intersecting or degenerate)."
+        )
+    return close_curve(ring)
+
+
+def _anchor_point(ring: np.ndarray, origin) -> np.ndarray:
+    """Resolve a transform origin: literal (x, y), bounding-box "center",
+    or mass "centroid"."""
+    if not isinstance(origin, str):
+        return np.asarray(origin, dtype=float)
+    if origin == "center":
+        return 0.5 * (ring.min(axis=0) + ring.max(axis=0))
+    if origin == "centroid":
+        return ops.centroid(ring)
+    raise ValueError(f"Invalid origin: {origin!r}.")
+
+
+class Polygon:
+    """A simply-connected region assigned to a :class:`Layer`.
+
+    Args:
+        name: Name of the polygon.
+        layer: Name of the layer in which the polygon is located.
+        points: ``(n, 2)`` vertex array or another :class:`Polygon`.
+    """
+
+    __slots__ = ("name", "layer", "_points")
+
+    def __init__(
+        self,
+        name: Optional[str] = None,
+        *,
+        layer: Optional[str] = None,
+        points: PolygonType,
+    ):
+        self.name = name
+        self.layer = layer
+        self.points = points
+
+    # -- vertices --------------------------------------------------------
+
+    @property
+    def points(self) -> np.ndarray:
+        """Closed, CCW-oriented ``(n, 2)`` vertex array."""
+        return self._points
+
+    @points.setter
+    def points(self, points) -> None:
+        self._points = _coerce_ring(points)
+
+    @property
+    def is_valid(self) -> bool:
+        """Whether the polygon is fully specified (named, on a layer, and
+        geometrically simple)."""
+        if self.name is None or self.layer is None:
+            return False
+        return ops.is_simple_polygon(self._points)
+
+    @property
+    def area(self) -> float:
+        """Enclosed area."""
+        return ops.polygon_area(self._points)
+
+    @property
+    def extents(self) -> Tuple[float, float]:
+        """Bounding-box side lengths ``(Delta_x, Delta_y)``."""
+        span = self._points.max(axis=0) - self._points.min(axis=0)
+        return float(span[0]), float(span[1])
+
+    # -- point queries ---------------------------------------------------
+
+    def contains_points(
+        self, points: np.ndarray, index: bool = False
+    ) -> Union[bool, np.ndarray]:
+        """Tests which of ``points`` fall inside the polygon (points on the
+        outline are decided as by matplotlib, see :func:`points_in_ring`).
+
+        Args:
+            points: ``(n, 2)`` query coordinates.
+            index: Return the indices of the hits instead of a boolean mask.
+        """
+        mask = points_in_ring(self._points, points)
+        return np.flatnonzero(mask) if index else mask
+
+    # -- meshing ---------------------------------------------------------
+
+    def make_mesh(
+        self,
+        min_points: Optional[int] = None,
+        max_edge_length: Optional[float] = None,
+        smooth: int = 0,
+        build_operators: bool = False,
+        **mesh_kwargs,
+    ):
+        """Triangulates the polygon into a :class:`Mesh`."""
+        from .mesh import Mesh
+        from .mesh_generation import generate_mesh
+
+        sites, elements = generate_mesh(
+            self._points,
+            min_points=min_points,
+            max_edge_length=max_edge_length,
+            **mesh_kwargs,
+        )
+        mesh = Mesh.from_triangulation(
+            sites, elements, build_operators=build_operators
+        )
+        return mesh.smooth(smooth, build_operators=build_operators)
+
+    # -- affine transforms -----------------------------------------------
+
+    def _remapped(self, fn, inplace: bool) -> "Polygon":
+        """Applies ``fn(vertices) -> vertices`` to ``self`` or a copy."""
+        target = self if inplace else self.copy()
+        target.points = fn(self._points)
+        return target
+
+    def rotate(
+        self,
+        degrees: float,
+        origin: Union[str, Tuple[float, float]] = (0.0, 0.0),
+        inplace: bool = False,
+    ) -> "Polygon":
+        """Rotates CCW by ``degrees`` about ``origin``."""
+        pivot = _anchor_point(self._points, origin)
+        return self._remapped(
+            lambda p: rotate_coords(p - pivot, degrees) + pivot, inplace
+        )
+
+    def translate(
+        self, dx: float = 0.0, dy: float = 0.0, inplace: bool = False
+    ) -> "Polygon":
+        """Shifts the polygon by ``(dx, dy)``."""
+        shift = np.array([dx, dy], dtype=float)
+        return self._remapped(lambda p: p + shift, inplace)
+
+    def scale(
+        self,
+        xfact: float = 1.0,
+        yfact: float = 1.0,
+        origin: Union[str, Tuple[float, float]] = (0, 0),
+        inplace: bool = False,
+    ) -> "Polygon":
+        """Scales by ``(xfact, yfact)`` about ``origin``."""
+        pivot = _anchor_point(self._points, origin)
+        gain = np.array([xfact, yfact], dtype=float)
+        return self._remapped(lambda p: (p - pivot) * gain + pivot, inplace)
+
+    # -- boolean algebra -------------------------------------------------
+
+    def _join_via(self, other: PolygonType, operation: str) -> np.ndarray:
+        """One boolean step against a single other polygon-like object."""
+        if operation not in _BOOLEAN_OPS:
+            raise ValueError(
+                f"Unknown operation: {operation}. "
+                f"Valid operations are {tuple(sorted(_BOOLEAN_OPS))}."
+            )
+        if isinstance(other, Polygon):
+            clip = other.points
+        else:
+            clip = np.asarray(other, dtype=float)
+            if clip.ndim != 2 or clip.shape[-1] != 2:
+                raise TypeError(
+                    f"Expected a Polygon or shape (n, 2) array, got {other!r}."
+                )
+        try:
+            return ops.boolean_op(self._points, clip, operation)
+        except ops.PolygonOpError as err:
+            raise ValueError(
+                f"The {operation} of the two polygons is not a valid polygon "
+                f"for the following reason: {err}."
+            ) from err
+
+    def _fold(self, operation: str, others, name: Optional[str]) -> "Polygon":
+        """Left-folds ``operation`` over ``others``, threading name/layer."""
+        acc = self.copy()
+        for other in others:
+            acc = Polygon(
+                name=name or self.name,
+                layer=self.layer,
+                points=acc._join_via(other, operation),
+            )
+        return acc
+
+    def union(self, *others: PolygonType, name: Optional[str] = None) -> "Polygon":
+        """The union of this polygon with zero or more others."""
+        return self._fold("union", others, name)
+
+    def intersection(
+        self, *others: PolygonType, name: Optional[str] = None
+    ) -> "Polygon":
+        """The intersection of this polygon with zero or more others."""
+        return self._fold("intersection", others, name)
+
+    def difference(
+        self,
+        *others: PolygonType,
+        symmetric: bool = False,
+        name: Optional[str] = None,
+    ) -> "Polygon":
+        """The (symmetric) difference of this polygon and zero or more
+        others."""
+        op = "symmetric_difference" if symmetric else "difference"
+        return self._fold(op, others, name)
+
+    @classmethod
+    def from_union(
+        cls,
+        items: Iterable[PolygonType],
+        *,
+        name: Optional[str] = None,
+        layer: Optional[str] = None,
+    ) -> "Polygon":
+        """Builds one polygon as the union of ``items``."""
+        head, *tail = items
+        return cls(name=name, layer=layer, points=head)._fold("union", tail, name)
+
+    # -- offsetting / resampling -----------------------------------------
+
+    def buffer(
+        self,
+        distance: float,
+        join_style: Union[str, int] = "mitre",
+        mitre_limit: float = 5.0,
+        as_polygon: bool = True,
+    ) -> Union[np.ndarray, "Polygon"]:
+        """Offsets the boundary outward by ``distance`` (inward if
+        negative), then resamples to at least the original vertex count."""
+        offset_ring = ops.buffer_polygon(
+            self._points,
+            distance,
+            join_style=join_style,
+            mitre_limit=mitre_limit,
+        )
+        out = Polygon(
+            name=f"{self.name}", layer=self.layer, points=offset_ring
+        ).resample(max(len(offset_ring), len(self._points)))
+        return out if as_polygon else out.points
+
+    def resample(self, num_points: Optional[int] = None) -> "Polygon":
+        """Redistributes vertices ~uniformly along the boundary."""
+        if num_points is None:
+            num_points = len(self._points)
+        if not num_points:
+            return self.copy()
+        ring = ops.resample_polygon(self._points, num_points - 1)
+        return Polygon(name=self.name, layer=self.layer, points=ring)
+
+    # -- misc ------------------------------------------------------------
+
+    def copy(self) -> "Polygon":
+        return deepcopy(self)
+
+    def __repr__(self) -> str:
+        name = None if self.name is None else f"{self.name!r}"
+        layer = None if self.layer is None else f"{self.layer!r}"
+        return (
+            f"{type(self).__name__}(name={name}, layer={layer}, "
+            f"points=<ndarray: shape={self._points.shape}>)"
+        )
+
+    def __eq__(self, other) -> bool:
+        if other is self:
+            return True
+        if not isinstance(other, Polygon):
+            return False
+        if (self.name, self.layer) != (other.name, other.layer):
+            return False
+        return self._points.shape == other._points.shape and np.allclose(
+            self._points, other._points
+        )

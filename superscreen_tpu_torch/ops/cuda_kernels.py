@@ -1,0 +1,195 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
+
+The sources live in ``superscreen_tpu_torch/csrc``.  At first use they are
+compiled with ``nvcc`` into one shared library with a plain C interface
+under ``superscreen_tpu_torch/_build`` (named by a hash of the sources and
+flags, so an edited source is rebuilt) and bound with ``ctypes``.  Nothing
+is compiled or loaded when this module is imported.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch failed.  ``LAUNCHES`` counts the launches of each
+kernel.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+__all__ = ["LAUNCHES", "load_library", "q_matrix", "biot_savart_batch"]
+
+#: Launch counts per kernel; a wrapper adds one each time it launches.
+LAUNCHES = {"q_matrix": 0, "biot_savart_batch": 0}
+
+_PACKAGE_DIR = Path(__file__).resolve().parent.parent
+_CSRC = _PACKAGE_DIR / "csrc"
+_BUILD_DIR = _PACKAGE_DIR / "_build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+_SUPPORTED = (torch.float32, torch.float64)
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError(
+        "nvcc was not found (set CUDA_HOME); the CUDA kernels of "
+        "superscreen_tpu_torch are compiled from source at first use."
+    )
+
+
+def _build(sources, target: Path) -> None:
+    """Compiles ``sources`` into ``target`` through a temporary file that is
+    renamed into place, so concurrent builders never see a partial file."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        result = subprocess.run(cmd, capture_output=True, text=True)
+        if result.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({result.returncode}):\n{' '.join(cmd)}\n"
+                f"{result.stdout}\n{result.stderr}"
+            )
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for suffix, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"sstt_q_matrix_{suffix}")
+        fn.argtypes = [ptr, i64, ptr, ptr]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"sstt_biot_savart_{suffix}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, scalar, i64, i64, i64, i64, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Builds (if the sources changed) and loads the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            sources = sorted(_CSRC.glob("*.cu"))
+            digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+            for path in sorted(_CSRC.glob("*.cu*")):
+                digest.update(path.name.encode())
+                digest.update(path.read_bytes())
+            target = _BUILD_DIR / f"libsstt_kernels_{digest.hexdigest()[:16]}.so"
+            if not target.exists():
+                _build(sources, target)
+            _lib = _bind(ctypes.CDLL(str(target)))
+        return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}.")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must have dtype {dtype}, got {t.dtype}.")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}.")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous.")
+    # (x, y) pairs are read with one vector load each.
+    if shape[-1] == 2 and t.data_ptr() % (2 * t.element_size()):
+        raise ValueError(f"{name} must be aligned to {2 * t.element_size()} bytes.")
+
+
+def _raise_on_error(kernel: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch (cudaError {code}).")
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    if dtype not in _SUPPORTED:
+        raise TypeError(f"CUDA kernels support float32 and float64, got {dtype}.")
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def q_matrix(points: torch.Tensor) -> torch.Tensor:
+    """``q_ij = 1/(4 pi |r_i - r_j|^3)`` with zero diagonal (and zero at
+    coincident points) for ``(n, 2)`` CUDA ``points``; returns ``(n, n)``."""
+    suffix = _suffix(points.dtype)
+    n = points.shape[0]
+    _check("points", points, points.dtype, (n, 2))
+    out = torch.empty((n, n), dtype=points.dtype, device=points.device)
+    with torch.cuda.device(points.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"sstt_q_matrix_{suffix}")(
+            points.data_ptr(), n, out.data_ptr(), stream
+        )
+    _raise_on_error("q_matrix", code)
+    LAUNCHES["q_matrix"] += 1
+    return out
+
+
+def _source_splits(n1: int, n2: int, device: torch.device) -> int:
+    """Source-range splits so that the grid has about four blocks per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    eval_blocks = -(-n2 // 128)
+    tiles = -(-n1 // 128)
+    return max(1, min(tiles, -(-4 * sms // eval_blocks), 65535))
+
+
+def biot_savart_batch(
+    src_sites: torch.Tensor,
+    src_areas: torch.Tensor,
+    J: torch.Tensor,
+    dst_sites: torch.Tensor,
+    dz2: float,
+) -> torch.Tensor:
+    """Field at ``dst_sites`` (``(n2, 2)``) from the sheet currents ``J``
+    (``(B, n1, 2)``) at ``src_sites`` (``(n1, 2)``) with vertex areas
+    ``src_areas`` (``(n1,)``), at squared height difference ``dz2``.
+    Returns ``(B, n2)``."""
+    suffix = _suffix(src_sites.dtype)
+    dtype = src_sites.dtype
+    n1, n2 = src_sites.shape[0], dst_sites.shape[0]
+    if J.ndim != 3:
+        raise ValueError(f"J must have shape (B, n1, 2), got {tuple(J.shape)}.")
+    B = J.shape[0]
+    _check("src_sites", src_sites, dtype, (n1, 2))
+    _check("src_areas", src_areas, dtype, (n1,))
+    _check("J", J, dtype, (B, n1, 2))
+    _check("dst_sites", dst_sites, dtype, (n2, 2))
+    for name, t in (("src_areas", src_areas), ("J", J), ("dst_sites", dst_sites)):
+        if t.device != src_sites.device:
+            raise ValueError(f"{name} is on {t.device}, src_sites on {src_sites.device}.")
+    splits = _source_splits(n1, n2, src_sites.device)
+    partial = torch.empty((splits, B, n2), dtype=dtype, device=src_sites.device)
+    out = torch.empty((B, n2), dtype=dtype, device=src_sites.device)
+    with torch.cuda.device(src_sites.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"sstt_biot_savart_{suffix}")(
+            src_sites.data_ptr(), src_areas.data_ptr(), J.data_ptr(),
+            dst_sites.data_ptr(), float(dz2), n1, n2, B, splits,
+            partial.data_ptr(), out.data_ptr(), stream,
+        )
+    _raise_on_error("biot_savart_batch", code)
+    LAUNCHES["biot_savart_batch"] += 1
+    return out

@@ -1,0 +1,309 @@
+"""Top-level solve orchestration and the factorized model.
+
+Counterpart of ``superscreen_tpu/solver/solve.py`` on its device-resident
+path: :func:`factorize_model` builds and LU-factorizes every film system on
+the torch device; :func:`solve` runs the initial per-film solve plus
+``iterations`` rounds of exact self-consistent inter-film coupling and
+returns one :class:`Solution` per round.
+"""
+
+import contextlib
+import logging
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import Device
+from ..solution import FilmSolution, Solution
+from ..sources import ConstantField
+from ..sweep import FilmSweepData, _run_sweep_history, film_sweep_data
+from .solve_film import LinearSystem, factorize_linear_systems
+from .utils import (
+    FilmInfo,
+    currents_to_floats,
+    field_conversion_factor,
+    make_film_info,
+    torch_dtype,
+)
+
+logger = logging.getLogger("solve")
+
+__all__ = ["FactorizedModel", "factorize_model", "solve"]
+
+
+def resolve_torch_device(torch_device) -> torch.device:
+    """The torch device to compute on: ``cuda`` requires a card (there is
+    no silent CPU fallback), and ``cpu`` must be asked for explicitly."""
+    dev = torch.device(torch_device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "torch_device='cuda' but no CUDA device is available; pass "
+                "torch_device='cpu' to run the plain PyTorch path."
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"torch_device must be a cuda or cpu device, got {dev}.")
+    return dev
+
+
+@contextlib.contextmanager
+def highest_matmul_precision():
+    """Full-precision float32 matrix products (TF32 off) for the duration:
+    the iterative refinement diverges on a low-precision residual."""
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
+
+
+@dataclass
+class FactorizedModel:
+    """A pre-factorized model: everything applied-field-independent.
+
+    Args:
+        device: The :class:`Device`.
+        torch_device: The torch device holding the tensors.
+        film_info: ``{film_name: FilmInfo}``.
+        film_systems: ``{film_name: LinearSystem}``.
+        hole_systems: ``{film_name: {hole_name: LinearSystem}}``.
+        film_data: ``{film_name: FilmSweepData}``, the tensors the solve
+            runs on.
+        circulating_currents: ``{hole_name: current}``.
+        current_units: The current units.
+    """
+
+    device: Device
+    torch_device: torch.device
+    film_info: Dict[str, FilmInfo]
+    film_systems: Dict[str, LinearSystem]
+    hole_systems: Dict[str, Dict[str, LinearSystem]]
+    film_data: Dict[str, FilmSweepData]
+    circulating_currents: Dict[str, float]
+    current_units: str
+
+    def set_circulating_currents(self, circulating_currents: Dict[str, float]) -> None:
+        """Sets the circulating currents (floats in ``current_units``)
+        without re-factorizing."""
+        unknown = set(circulating_currents) - set(self.device.holes)
+        if unknown:
+            raise KeyError(
+                "circulating_currents contains keys not in "
+                f"self.device.holes: {sorted(unknown)!r}"
+            )
+        self.circulating_currents = dict(circulating_currents)
+        for info in self.film_info.values():
+            info.circulating_currents = {
+                hole: current
+                for hole, current in self.circulating_currents.items()
+                if hole in info.hole_indices
+            }
+
+
+def factorize_model(
+    *,
+    device: Device,
+    current_units: str,
+    circulating_currents: Optional[Dict[str, Union[float, str]]] = None,
+    terminal_currents=None,
+    vortices=None,
+    torch_device="cuda",
+) -> FactorizedModel:
+    """Prepares the applied-field-independent part of a model: builds and
+    LU-factorizes the per-film systems on ``torch_device``.
+
+    Args:
+        device: The device to simulate.
+        current_units: Units for currents; applied fields are converted to
+            ``current_units / device.length_units``.
+        circulating_currents: ``{hole_name: current}`` (floats in
+            ``current_units``, or strings/Quantities with units).
+        terminal_currents: Not supported yet; must be empty.
+        vortices: Not supported yet; must be empty.
+        torch_device: ``"cuda"`` (default; raises without a card) or
+            ``"cpu"``.
+    """
+    if terminal_currents:
+        raise NotImplementedError("Terminal currents are not supported yet.")
+    torch_device = resolve_torch_device(torch_device)
+    circulating_currents = currents_to_floats(
+        circulating_currents or {}, device.ureg, current_units
+    )
+    unknown_holes = set(circulating_currents) - set(device.holes)
+    if unknown_holes:
+        raise KeyError(
+            "circulating_currents contains keys not in device.holes: "
+            f"{sorted(unknown_holes)!r}"
+        )
+    with highest_matmul_precision():
+        film_info = make_film_info(
+            device=device,
+            circulating_currents=circulating_currents,
+            torch_device=torch_device,
+            vortices=vortices,
+        )
+        film_systems, hole_systems = factorize_linear_systems(device, film_info)
+        model = FactorizedModel(
+            device=device,
+            torch_device=torch_device,
+            film_info=film_info,
+            film_systems=film_systems,
+            hole_systems=hole_systems,
+            film_data={},
+            circulating_currents=circulating_currents,
+            current_units=current_units,
+        )
+        model.film_data = {name: film_sweep_data(model, name) for name in device.films}
+    return model
+
+
+def _sample_applied_fields(
+    device: Device, applied_field: Callable, field_conversion: float
+) -> Dict[str, np.ndarray]:
+    """Evaluates the applied field at every film's mesh sites (at the
+    film's layer height), scaled into ``current_units / length_units``."""
+    dtype = device.solve_dtype
+    out = {}
+    for film, mesh in device.meshes.items():
+        sites = mesh.sites
+        z0 = device.layers[device.films[film].layer].z0
+        values = applied_field(sites[:, 0], sites[:, 1], np.full(len(sites), z0))
+        Hz = np.atleast_1d(
+            np.squeeze(np.asarray(values) * field_conversion).astype(dtype, copy=False)
+        )
+        if Hz.shape[0] == 1:
+            Hz = np.full(len(sites), Hz.item(), dtype=dtype)
+        if Hz.ndim != 1:
+            raise ValueError(
+                f"Expected applied_field to return a 1D vector, got a {Hz.ndim}D array."
+            )
+        out[film] = Hz
+    return out
+
+
+def solve(
+    device: Optional[Device] = None,
+    *,
+    model: Optional[FactorizedModel] = None,
+    applied_field: Optional[Callable] = None,
+    circulating_currents: Optional[Dict[str, Union[float, str]]] = None,
+    terminal_currents=None,
+    vortices=None,
+    field_units: str = "mT",
+    current_units: str = "uA",
+    iterations: int = 0,
+    coupling: str = "auto",
+    torch_device="cuda",
+) -> List[Solution]:
+    """Computes stream functions and fields for all films in a device.
+
+    1. Solve each film given only the applied field.
+    2. For ``iterations`` rounds, compute each film's screening field at
+       every other film (exact Biot-Savart) and re-solve.
+
+    Args:
+        device: The device to simulate (or provide ``model``).
+        model: A pre-factorized model (mutually exclusive with ``device``
+            and ``circulating_currents``).
+        applied_field: Callable ``H_z(x, y, z)`` in ``field_units``.
+        circulating_currents: ``{hole_name: current}``.
+        terminal_currents: Not supported yet; must be empty.
+        vortices: Not supported yet; must be empty.
+        field_units: Units of the applied field (H or B).
+        current_units: Units for currents.
+        iterations: Number of self-consistent coupling rounds.
+        coupling: ``"exact"`` or ``"auto"`` (which means exact here);
+            ``"fft"`` is not supported yet.
+        torch_device: ``"cuda"`` (default; raises without a card) or
+            ``"cpu"``.  A given ``model`` must live on this device.
+
+    Returns:
+        A list of ``iterations + 1`` Solutions for a multi-film device
+        with ``iterations >= 1``, else one Solution.
+    """
+    if coupling == "fft":
+        raise NotImplementedError("coupling='fft' is not supported yet; use 'exact'.")
+    if coupling not in ("auto", "exact"):
+        raise ValueError(f"coupling must be 'auto' or 'exact' (got {coupling!r}).")
+    torch_device = resolve_torch_device(torch_device)
+    if model is None:
+        if device is None:
+            raise ValueError("Either a model or a device must be provided.")
+        model = factorize_model(
+            device=device,
+            current_units=current_units,
+            circulating_currents=circulating_currents,
+            terminal_currents=terminal_currents,
+            vortices=vortices,
+            torch_device=torch_device,
+        )
+    elif any(
+        arg is not None
+        for arg in (device, circulating_currents, terminal_currents, vortices)
+    ):
+        raise ValueError(
+            "If model is provided, device, circulating_currents, "
+            "terminal_currents and vortices must be None."
+        )
+    elif model.torch_device != torch_device:
+        raise ValueError(
+            f"The model lives on {model.torch_device}, not on {torch_device}."
+        )
+    device = model.device
+    current_units = model.current_units
+    films = list(device.films)
+    tdtype = torch_dtype(device.solve_dtype)
+    field_conversion = field_conversion_factor(
+        field_units, current_units, length_units=device.length_units, ureg=device.ureg
+    ).magnitude
+    applied_field = applied_field or ConstantField(0)
+    applied_fields = _sample_applied_fields(device, applied_field, field_conversion)
+    Hz = {
+        name: torch.as_tensor(applied_fields[name][None], device=torch_device)
+        for name in films
+    }
+    I_circ = {
+        name: torch.tensor(
+            [[model.circulating_currents.get(h, 0.0) for h in model.film_data[name].hole_names]],
+            dtype=tdtype,
+            device=torch_device,
+        )
+        for name in films
+    }
+    coupled = len(films) >= 2 and iterations >= 1
+    with highest_matmul_precision():
+        gs, Js, selfs, others = _run_sweep_history(
+            model.film_data, Hz, I_circ, iterations if coupled else 0, 2
+        )
+    gs, Js, selfs, others = (
+        {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)
+    )
+    inv = 1.0 / field_conversion
+    solutions = []
+    for i in range(iterations + 1 if coupled else 1):
+        film_solutions = {
+            name: FilmSolution(
+                stream=gs[name][i, 0],
+                current_density=Js[name][i, 0],
+                applied_field=applied_fields[name] * inv,
+                self_field=selfs[name][i, 0] * inv,
+                field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
+            )
+            for name in films
+        }
+        solutions.append(
+            Solution(
+                device=device,
+                film_solutions=film_solutions,
+                applied_field_func=applied_field,
+                field_units=field_units,
+                current_units=current_units,
+                circulating_currents=model.circulating_currents,
+            )
+        )
+    return solutions

@@ -1,0 +1,108 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Every test here is marked ``gpu`` and skips without a CUDA
+device.  This file imports neither JAX nor ``superscreen_tpu``, so it runs
+on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import superscreen_tpu_torch as st
+from superscreen_tpu_torch.ops import cuda_kernels, kernels
+
+pytestmark = pytest.mark.gpu
+
+# Relative to max|plain|: float32 terms round at ~6e-8 and are summed in
+# other orders; float64 at ~1.1e-16.
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rel_err(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 33, 1000, 4099])
+def test_q_matrix_kernel_matches_plain(cuda, dtype, n):
+    rng = np.random.default_rng(n)
+    pts = torch.as_tensor(rng.uniform(-5, 5, (n, 2)), dtype=dtype, device=cuda)
+    out = cuda_kernels.q_matrix(pts)
+    ref = kernels.q_matrix_plain(pts)
+    torch.cuda.synchronize()
+    assert out.shape == (n, n)
+    assert bool((out.diagonal() == 0).all())
+    if n > 1:
+        assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 9])
+def test_biot_savart_kernel_matches_plain(cuda, dtype, B):
+    rng = np.random.default_rng(B)
+    n1, n2 = 3001, 1777
+    src = torch.as_tensor(rng.uniform(-5, 5, (n1, 2)), dtype=dtype, device=cuda)
+    dst = torch.as_tensor(rng.uniform(-4, 4, (n2, 2)), dtype=dtype, device=cuda)
+    areas = torch.as_tensor(rng.uniform(0.01, 0.02, n1), dtype=dtype, device=cuda)
+    J = torch.as_tensor(rng.standard_normal((B, n1, 2)), dtype=dtype, device=cuda)
+    for dz2 in (0.25, 1.0):
+        out = cuda_kernels.biot_savart_batch(src, areas, J, dst, dz2)
+        ref = kernels.biot_savart_plain(src, areas, J, dst, dz2)
+        torch.cuda.synchronize()
+        assert out.shape == (B, n2)
+        assert _rel_err(out, ref) <= TOL[dtype]
+
+
+def test_dispatch_counts_launches(cuda):
+    pts = torch.rand((50, 2), device=cuda)
+    before = dict(cuda_kernels.LAUNCHES)
+    kernels.q_matrix(pts)
+    kernels.biot_savart_film_to_film_dz2(pts, torch.ones(50, device=cuda), torch.rand((50, 2), device=cuda), pts + 10, 1.0)
+    assert cuda_kernels.LAUNCHES["q_matrix"] == before["q_matrix"] + 1
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before["biot_savart_batch"] + 1
+
+
+def test_wrappers_refuse_bad_input(cuda):
+    with pytest.raises(ValueError, match="shape"):
+        cuda_kernels.q_matrix(torch.zeros((5, 3), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.q_matrix(torch.zeros((2, 5), device=cuda).T)
+    with pytest.raises(TypeError):
+        cuda_kernels.q_matrix(torch.zeros((5, 2), dtype=torch.float16, device=cuda))
+
+
+def test_solve_on_the_card_matches_cpu_float64(cuda):
+    layers = [st.Layer("l0", Lambda=1.0, z0=0), st.Layer("l1", Lambda=0.5, z0=1)]
+    films = [
+        st.Polygon("big", layer="l0", points=st.geometry.circle(7.5, points=120)),
+        st.Polygon("small", layer="l1", points=st.geometry.circle(5, points=100)),
+    ]
+    holes = [
+        st.Polygon("big_hole", layer="l0", points=st.geometry.circle(3.75, points=70)),
+        st.Polygon("small_hole", layer="l1", points=st.geometry.circle(2.5, points=60)),
+    ]
+    device = st.Device("two", layers=layers, films=films, holes=holes)
+    device.make_mesh(max_edge_length=0.8)
+    cpu_device = device.copy()
+    cpu_device.solve_dtype = "float64"
+    kwargs = dict(
+        applied_field=st.sources.ConstantField(1.0),
+        circulating_currents={"big_hole": "1 mA"},
+        iterations=2,
+    )
+    gpu = st.solve(device, torch_device="cuda", **kwargs)
+    cpu = st.solve(cpu_device, torch_device="cpu", **kwargs)
+    for g, c in zip(gpu, cpu):
+        for name in device.films:
+            a = g.film_solutions[name].stream
+            b = c.film_solutions[name].stream
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()

@@ -1,0 +1,168 @@
+"""The port's pairwise kernels against the JAX package's.
+
+The port's plain PyTorch versions (the path a CPU tensor takes) are held
+against the Pallas TPU kernels run in interpret mode (float32, small
+tiles as in ``tests/test_pallas.py``) and against the JAX package's
+blocked jnp kernels (float64).  Inputs come from a NumPy seed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from superscreen_tpu.ops import kernels as jkernels
+from superscreen_tpu.ops.pallas_kernels import (
+    PALLAS_AVAILABLE,
+    pallas_biot_savart_batch,
+    pallas_q_matrix,
+)
+from superscreen_tpu_torch.ops import cuda_kernels, kernels
+
+torch.set_num_threads(2)
+
+needs_pallas = pytest.mark.skipif(not PALLAS_AVAILABLE, reason="Pallas is not importable")
+
+# Small tiles so interpret mode covers multi-tile grids (tests/test_pallas.py).
+TM, TN = 16, 128
+
+
+def _sites(rng, n, scale=3.0):
+    return rng.uniform(-scale, scale, size=(n, 2))
+
+
+def _t(a, dtype=torch.float64):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def _bs_inputs(seed, B, n1, n2):
+    rng = np.random.default_rng(seed)
+    src = _sites(rng, n1)
+    dst = _sites(rng, n2) + 0.5
+    areas = rng.uniform(0.01, 0.05, size=n1)
+    J = rng.standard_normal((B, n1, 2))
+    return src, areas, J, dst
+
+
+@needs_pallas
+@pytest.mark.parametrize("n", [128, 129, 200])
+def test_q_matrix_matches_pallas_interpret(n):
+    # float32 on both sides: rsqrt rounding differs by a few ulp, so 1e-5
+    # relative to the largest entry.
+    pts = _sites(np.random.default_rng(n), n).astype(np.float32)
+    ref = np.asarray(pallas_q_matrix(pts, tm=8, tn=128, interpret=True))
+    out = kernels.q_matrix(_t(pts, torch.float32)).numpy()
+    assert out.shape == (n, n)
+    assert np.all(np.diag(out) == 0)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n", [97, 300])
+def test_q_matrix_matches_jnp_float64(n):
+    pts = _sites(np.random.default_rng(10 + n), n)
+    ref = np.asarray(jkernels._q_matrix_jnp(pts, block=64))
+    out = kernels.q_matrix(_t(pts)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-13, atol=0)
+
+
+def test_q_matrix_coincident_points_are_zero():
+    pts = _sites(np.random.default_rng(3), 64)
+    pts[10] = pts[40]
+    q = kernels.q_matrix(_t(pts)).numpy()
+    assert np.isfinite(q).all()
+    assert q[10, 40] == 0.0 and q[40, 10] == 0.0
+
+
+@pytest.mark.parametrize("n", [50, 211])
+def test_Q_matrix_matches_jax(n):
+    rng = np.random.default_rng(20 + n)
+    pts = _sites(rng, n)
+    w = rng.uniform(0.01, 0.05, size=n)
+    ref = np.asarray(jkernels.Q_matrix(pts, w))
+    out = kernels.Q_matrix(_t(pts), _t(w)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+
+
+@needs_pallas
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("n1,n2", [(128, 128), (150, 97)])
+def test_biot_savart_matches_pallas_interpret(B, n1, n2):
+    src, areas, J, dst = (
+        a.astype(np.float32) for a in _bs_inputs(100 * B + n1, B, n1, n2)
+    )
+    dz2 = np.float32(1.3)
+    ref = np.asarray(
+        pallas_biot_savart_batch(src, areas, J, dst, dz2, tm=TM, tn=TN, interpret=True)
+    )
+    out = kernels.biot_savart_film_to_film_dz2(
+        _t(src, torch.float32), _t(areas, torch.float32), _t(J, torch.float32),
+        _t(dst, torch.float32), float(dz2),
+    ).numpy()
+    assert out.shape == (B, n2)
+    # float32 sums of n1 terms in different orders: 1e-5 of the largest value.
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dz2", [0.25, 1.0])
+def test_biot_savart_matches_jnp_float64(B, dz2):
+    src, areas, J, dst = _bs_inputs(7 * B, B, 173, 91)
+    ref = np.asarray(
+        jkernels.biot_savart_film_to_film_dz2(src, areas, J, dst, dz2, block=32)
+    )
+    out = kernels.biot_savart_film_to_film_dz2(_t(src), _t(areas), _t(J), _t(dst), dz2)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-13 * np.abs(ref).max())
+
+
+def test_biot_savart_unbatched_shape():
+    src, areas, J, dst = _bs_inputs(5, 1, 40, 30)
+    out = kernels.biot_savart_film_to_film_dz2(_t(src), _t(areas), _t(J[0]), _t(dst), 0.7)
+    batched = kernels.biot_savart_film_to_film_dz2(_t(src), _t(areas), _t(J), _t(dst), 0.7)
+    assert out.shape == (30,)
+    np.testing.assert_array_equal(out.numpy(), batched[0].numpy())
+
+
+def test_biot_savart_pair_matches_jax():
+    rng = np.random.default_rng(11)
+    s1, s2 = _sites(rng, 60), _sites(rng, 45) + 1.0
+    w1, w2 = rng.uniform(0.01, 0.05, 60), rng.uniform(0.01, 0.05, 45)
+    J1, J2 = rng.standard_normal((2, 60, 2)), rng.standard_normal((2, 45, 2))
+    ref = jkernels.biot_savart_pair_dz2(s1, w1, J1, s2, w2, J2, 0.5)
+    out = kernels.biot_savart_pair_dz2(
+        _t(s1), _t(w1), _t(J1), _t(s2), _t(w2), _t(J2), 0.5
+    )
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-14)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    before = dict(cuda_kernels.LAUNCHES)
+    pts = _t(_sites(np.random.default_rng(1), 20))
+    np.testing.assert_array_equal(
+        kernels.q_matrix(pts).numpy(), kernels.q_matrix_plain(pts).numpy()
+    )
+    assert cuda_kernels.LAUNCHES == before
+
+
+def test_other_devices_raise():
+    with pytest.raises(ValueError, match="Unsupported tensor device"):
+        kernels.q_matrix(torch.zeros((4, 2), device="meta"))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: cuda_kernels.q_matrix(torch.zeros((4, 2))),
+        lambda: cuda_kernels.biot_savart_batch(
+            torch.zeros((4, 2)), torch.ones(4), torch.zeros((1, 4, 2)),
+            torch.zeros((3, 2)), 1.0,
+        ),
+    ],
+)
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        call()
+
+
+def test_cuda_wrappers_refuse_other_dtypes():
+    with pytest.raises(TypeError, match="float32 and float64"):
+        cuda_kernels.q_matrix(torch.zeros((4, 2), dtype=torch.float16))
