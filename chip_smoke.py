@@ -16,12 +16,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    relative residual must be at most 1e-4.
 3. Accuracy: a two-ring device solved on the card in float32 against the
    same package on the CPU in float64 (plain PyTorch kernels).
+4. The low-memory path at real size: the four-ring stack of bench.py's
+   build_large at 27,000 sites per film, every film above
+   MAX_DENSE_KERNEL_SIZE, factorized (materialized interior systems, LU)
+   and solved with five coupling rounds in float32.  No film may hold a
+   dense kernel, the q_apply kernel must have run at least three times per
+   film, and every final relative residual must be at most 1e-4.
+5. The same stack with SUPERSCREEN_TPU_LARGE_FACTOR=cg (matrix-free CG):
+   streams within 1e-4 of phase 4's; CG iterations and the final
+   residuals are printed.
+6. Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1 (the
+   biot_savart_pair kernel): streams within 1e-5 of phase 4's.
+
+Phase 1 also runs q_apply and biot_savart_pair against their plain
+versions on the 27,000-site films, and the pair kernel against two
+biot_savart_batch passes.  Each path's launch counters are set to 0 just
+before it runs and read just after.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,6 +53,14 @@ import numpy as np
 TOL = {"float32": 1e-5, "float64": 1e-12}
 RESIDUAL_MAX = 1e-4
 STREAM_REL_MAX = 1e-4
+# CG stops at a relative residual of 1e-6 of its own iteration; float32
+# LU and CG answers then differ at the level of the LU residual (~1e-5).
+CG_STREAM_REL_MAX = 1e-4
+# One geometry pass or two: the same sums in another order, in float32.
+PAIR_STREAM_REL_MAX = 1e-5
+SITES_DENSE = 20000
+SITES_LARGE = 27000
+ITERATIONS = 5
 
 
 def _require(condition, message="check failed"):
@@ -121,6 +146,85 @@ def phase_kernels(torch, kernels, cuda_kernels, device):
     return rows
 
 
+def _check_against_plain(torch, label, dtype, out, ref):
+    """Max abs and relative (to max|plain|) error; fails above TOL."""
+    torch.cuda.synchronize()
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    abs_err, rel = 0.0, 0.0
+    for o, r in zip(outs, refs):
+        _require(o.shape == r.shape and bool(torch.isfinite(o).all()), f"{label}: bad output")
+        err = float((o - r).abs().max())
+        abs_err = max(abs_err, err)
+        rel = max(rel, err / float(r.abs().max()))
+    name = str(dtype).split(".")[1]
+    _require(rel <= TOL[name], f"{label} disagrees: {rel:.3e}")
+    return abs_err, rel
+
+
+def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
+    """q_apply and biot_savart_pair against their plain versions on the
+    sites of the 27,000-site films, and the pair kernel against two
+    biot_savart_batch passes; returns their rows for the summary line."""
+    rng = np.random.default_rng(4321)
+    meshes = list(device.meshes.values())
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        sites = torch.as_tensor(meshes[0].sites, dtype=dtype, device="cuda")
+        n = sites.shape[0]
+        for shape, ev in (("square", sites), ("rect", sites[: n // 3].contiguous())):
+            for k in (1, 7):
+                V = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype, device="cuda")
+                abs_err, rel = _check_against_plain(
+                    torch, f"q_apply {shape} k={k} {name}", dtype,
+                    cuda_kernels.q_apply(ev, sites, V), kernels.q_apply_plain(ev, sites, V),
+                )
+                ms = _timed(torch, lambda: cuda_kernels.q_apply(ev, sites, V), 10)
+                plain_ms = _timed(torch, lambda: kernels.q_apply_plain(ev, sites, V), 3)
+                print(
+                    f"phase1 q_apply {shape} m={ev.shape[0]} n={n} k={k} {name}: "
+                    f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                )
+                if dtype == torch.float32 and shape == "square" and k == 1:
+                    rows["q_apply"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    # Film 0 (z0 = 0) and film 1 (z0 = 0.5), as in a coupling round.
+    n1, n2 = len(meshes[0].sites), len(meshes[1].sites)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+
+        def t(a):
+            return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+        s1, s2 = t(meshes[0].sites), t(meshes[1].sites)
+        a1, a2 = t(meshes[0].vertex_areas), t(meshes[1].vertex_areas)
+        for B in (1, 8):
+            J1, J2 = t(rng.standard_normal((B, n1, 2))), t(rng.standard_normal((B, n2, 2)))
+            args = (s1, a1, J1, s2, a2, J2, 0.25)
+            abs_err, rel = _check_against_plain(
+                torch, f"biot_savart_pair B={B} {name}", dtype,
+                cuda_kernels.biot_savart_pair(*args), kernels.biot_savart_pair_plain(*args),
+            )
+
+            def two_passes():
+                cuda_kernels.biot_savart_batch(s1, a1, J1, s2, 0.25)
+                cuda_kernels.biot_savart_batch(s2, a2, J2, s1, 0.25)
+
+            ms = _timed(torch, lambda: cuda_kernels.biot_savart_pair(*args), 10)
+            two_ms = _timed(torch, two_passes, 10)
+            plain_ms = _timed(torch, lambda: kernels.biot_savart_pair_plain(*args), 3)
+            print(
+                f"phase1 biot_savart_pair n1={n1} n2={n2} B={B} dz2=0.25 {name}: "
+                f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
+                f"kernel_ms={ms:.4f} two_batch_passes_ms={two_ms:.4f} plain_ms={plain_ms:.4f}"
+            )
+            if dtype == torch.float32 and B == 1:
+                rows["biot_savart_pair"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def four_ring_stack(st, sites_per_film):
     """The four-ring stack of bench.py's build_large: radii 7.5 to 4.5,
     holes at half radius, Lambda = 0.5 + 0.25 i, z0 = 0.5 i."""
@@ -154,22 +258,33 @@ def two_rings(st, sites_per_film):
     return device
 
 
-def phase_solve(torch, st, cuda_kernels, device):
-    """The dense multi-film solve at real size on the meshed ``device``;
-    returns the launch counts."""
-    from superscreen_tpu_torch.solver.utils import (
-        MAX_DENSE_KERNEL_SIZE,
-        field_conversion_factor,
-    )
-    from superscreen_tpu_torch.sweep import relative_residual
-
-    iterations = 5
-    sizes = {name: len(mesh.sites) for name, mesh in device.meshes.items()}
-    print(f"phase2 mesh sites per film: {sizes}")
-    _require(all(n <= MAX_DENSE_KERNEL_SIZE for n in sizes.values()), sizes)
-    torch.cuda.reset_peak_memory_stats()
+def _reset_launches(cuda_kernels):
     for key in cuda_kernels.LAUNCHES:
         cuda_kernels.LAUNCHES[key] = 0
+
+
+def _solve(torch, st, model):
+    """``solve`` with ITERATIONS coupling rounds; returns the solutions and
+    the wall time, ended by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solutions = st.solve(
+        model=model,
+        applied_field=st.sources.ConstantField(1.0),
+        iterations=ITERATIONS,
+        torch_device="cuda",
+    )
+    torch.cuda.synchronize()
+    return solutions, time.perf_counter() - t0
+
+
+def _factorize_and_solve(torch, st, cuda_kernels, device, label):
+    """Factorizes ``device`` and solves it with ITERATIONS coupling rounds,
+    with the launch counters set to 0 just before; checks that every output
+    is finite and returns the model, the solutions and the launch counts."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(cuda_kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = st.factorize_model(
@@ -180,27 +295,17 @@ def phase_solve(torch, st, cuda_kernels, device):
     )
     torch.cuda.synchronize()
     t_factor = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    solutions = st.solve(
-        model=model,
-        applied_field=st.sources.ConstantField(1.0),
-        iterations=iterations,
-        torch_device="cuda",
-    )
-    torch.cuda.synchronize()
-    t_solve = time.perf_counter() - t0
+    solutions, t_solve = _solve(torch, st, model)
     launches = dict(cuda_kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(
-        f"phase2 times: factorize_s={t_factor:.3f} "
-        f"solve_s={t_solve:.3f} (iterations={iterations}) peak_memory_GB={peak_gb:.3f}"
+        f"{label} times: factorize_s={t_factor:.3f} "
+        f"solve_s={t_solve:.3f} (iterations={ITERATIONS}) peak_memory_GB={peak_gb:.3f}"
     )
-    print(f"phase2 launches: {launches}")
-    _require(len(solutions) == iterations + 1)
+    print(f"{label} launches: {launches}")
+    _require(len(solutions) == ITERATIONS + 1)
     _require(set(model.film_data) == set(device.films))
     for name in device.films:
-        data = model.film_data[name]
-        _require(data.Qw.shape == (sizes[name], sizes[name]), "film not on the dense path")
         for sol in solutions:
             fs = sol.film_solutions[name]
             outputs = [fs.stream, fs.current_density, fs.self_field, fs.applied_field]
@@ -208,28 +313,161 @@ def phase_solve(torch, st, cuda_kernels, device):
                 outputs.append(fs.field_from_other_films)
             for arr in outputs:
                 _require(np.all(np.isfinite(arr)), f"non-finite output in {name}")
-    _require(launches["q_matrix"] >= len(device.films), launches)
-    _require(launches["biot_savart_batch"] >= 12 * iterations, launches)
+    return model, solutions, launches
+
+
+def _check_residuals(torch, model, solution, label, limit=RESIDUAL_MAX):
+    """Prints each film's final relative residual ``||h + A g|| / ||h||``
+    (through the matrix-free operator for a CG film), which must be finite
+    and, where ``limit`` is given, at most ``limit``."""
+    from superscreen_tpu_torch.solver.utils import field_conversion_factor
+    from superscreen_tpu_torch.sweep import relative_residual
+
+    device = model.device
     conv = field_conversion_factor(
         "mT", "uA", length_units=device.length_units, ureg=device.ureg
     ).magnitude
-    final = solutions[-1]
     for name in device.films:
-        fs = final.film_solutions[name]
+        fs = solution.film_solutions[name]
         data = model.film_data[name]
+        dtype = data.weights.dtype
         Hz = (fs.applied_field + fs.field_from_other_films) * conv
         I_circ = [[model.circulating_currents.get(h, 0.0) for h in data.hole_names]]
         res = float(
             relative_residual(
                 data,
-                torch.as_tensor(Hz[None], dtype=data.A.dtype, device="cuda"),
-                torch.as_tensor(I_circ, dtype=data.A.dtype, device="cuda"),
-                torch.as_tensor(fs.stream[None], dtype=data.A.dtype, device="cuda"),
+                torch.as_tensor(Hz[None], dtype=dtype, device="cuda"),
+                torch.as_tensor(I_circ, dtype=dtype, device="cuda"),
+                torch.as_tensor(fs.stream[None], dtype=dtype, device="cuda"),
             )[0]
         )
-        print(f"phase2 {name}: final relative residual {res:.3e} (limit {RESIDUAL_MAX:.0e})")
-        _require(res <= RESIDUAL_MAX, f"{name} residual {res:.3e}")
+        print(f"{label} {name}: final relative residual {res:.3e} (limit {limit})")
+        _require(np.isfinite(res) and (limit is None or res <= limit), f"{name} residual {res:.3e}")
+
+
+def _stream_error(solutions, reference):
+    """Largest relative stream difference over the films of the last round."""
+    worst = 0.0
+    for name, fs in reference[-1].film_solutions.items():
+        a = solutions[-1].film_solutions[name].stream.astype(np.float64)
+        b = fs.stream.astype(np.float64)
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    return worst
+
+
+def phase_solve(torch, st, cuda_kernels, device):
+    """The dense multi-film solve at real size on the meshed ``device``;
+    returns the launch counts."""
+    from superscreen_tpu_torch.solver.utils import MAX_DENSE_KERNEL_SIZE
+
+    sizes = {name: len(mesh.sites) for name, mesh in device.meshes.items()}
+    print(f"phase2 mesh sites per film: {sizes}")
+    _require(all(n <= MAX_DENSE_KERNEL_SIZE for n in sizes.values()), sizes)
+    model, solutions, launches = _factorize_and_solve(torch, st, cuda_kernels, device, "phase2")
+    for name in device.films:
+        data = model.film_data[name]
+        _require(data.Qw.shape == (sizes[name], sizes[name]), "film not on the dense path")
+    _require(launches["q_matrix"] >= len(device.films), launches)
+    _require(launches["biot_savart_batch"] >= 12 * ITERATIONS, launches)
+    _check_residuals(torch, model, solutions[-1], "phase2")
     return launches
+
+
+def phase_lowmem(torch, st, cuda_kernels, device):
+    """The low-memory path at real size: every film above
+    MAX_DENSE_KERNEL_SIZE, materialized interior systems, LU.  Returns the
+    model, its solutions and the launch counts."""
+    from superscreen_tpu_torch.ops import linalg
+    from superscreen_tpu_torch.solver.utils import MAX_DENSE_KERNEL_SIZE
+
+    sizes = {name: len(mesh.sites) for name, mesh in device.meshes.items()}
+    print(f"phase4 mesh sites per film: {sizes}")
+    _require(all(n > MAX_DENSE_KERNEL_SIZE for n in sizes.values()), sizes)
+    model, solutions, launches = _factorize_and_solve(torch, st, cuda_kernels, device, "phase4")
+    interiors = {name: len(model.film_systems[name].indices) for name in device.films}
+    print(f"phase4 interior unknowns per film: {interiors}")
+    for name in device.films:
+        info, data = model.film_info[name], model.film_data[name]
+        _require(not info.dense_kernel and info.kernel is None, f"{name} holds a dense kernel")
+        _require(data.Qw is None and data.fac_kind == "lu", f"{name} not on the low-memory LU path")
+    _require(launches["q_apply"] >= 3 * len(device.films), launches)
+    _require(launches["q_matrix"] >= len(device.films), launches)
+    _require(launches["biot_savart_batch"] >= 12 * ITERATIONS, launches)
+    _check_residuals(torch, model, solutions[-1], "phase4")
+    # The peak of one film's factorization, for the materialized ceiling:
+    # A, the -A handed to lu_factor, the packed LU and the solver's
+    # workspace, per ni^2.
+    name = next(iter(device.films))
+    A = model.film_systems[name].A
+    ni = A.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lu_perm = linalg.factor_system(A)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + A.numel() * A.element_size()
+    del lu_perm
+    print(
+        f"phase4 factor_system peak at ni={ni}: {peak / 1e9:.3f} GB, "
+        f"{peak / ni**2:.3f} bytes per ni^2 ({A.dtype})"
+    )
+    return model, solutions, launches
+
+
+def phase_pair(torch, st, cuda_kernels, model, two_pass):
+    """Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1;
+    returns the launch counts."""
+    _, t_two = _solve(torch, st, model)
+    os.environ["SUPERSCREEN_TPU_PAIR_COUPLING"] = "1"
+    try:
+        _reset_launches(cuda_kernels)
+        solutions, t_pair = _solve(torch, st, model)
+        launches = dict(cuda_kernels.LAUNCHES)
+    finally:
+        del os.environ["SUPERSCREEN_TPU_PAIR_COUPLING"]
+    n_films = len(model.device.films)
+    pairs = n_films * (n_films - 1) // 2
+    err = _stream_error(solutions, two_pass)
+    print(
+        f"phase6 solve_s: two passes {t_two:.3f}, pair {t_pair:.3f} (warm, "
+        f"iterations={ITERATIONS}); launches {launches}; max relative stream "
+        f"difference {err:.3e} (limit {PAIR_STREAM_REL_MAX:.0e})"
+    )
+    _require(launches["biot_savart_pair"] >= pairs * ITERATIONS, launches)
+    _require(launches["biot_savart_batch"] == 0, launches)
+    _require(err <= PAIR_STREAM_REL_MAX, f"pair stream difference {err:.3e}")
+    return launches
+
+
+def phase_cg(torch, st, cuda_kernels, device, lu_solutions):
+    """The stack factorized with SUPERSCREEN_TPU_LARGE_FACTOR=cg and solved
+    matrix-free; streams against phase 4's."""
+    from superscreen_tpu_torch.ops import linalg
+
+    os.environ["SUPERSCREEN_TPU_LARGE_FACTOR"] = "cg"
+    try:
+        linalg.CG_STATS.update(solves=0, iterations=0, max_residual=0.0)
+        model, solutions, launches = _factorize_and_solve(
+            torch, st, cuda_kernels, device, "phase5"
+        )
+    finally:
+        del os.environ["SUPERSCREEN_TPU_LARGE_FACTOR"]
+    stats = dict(linalg.CG_STATS)
+    for name in device.films:
+        data = model.film_data[name]
+        _require(data.fac_kind == "cg" and data.A is None and data.Qw is None, name)
+    print(
+        f"phase5 CG: {stats['solves']} solves, {stats['iterations']} iterations "
+        f"({stats['iterations'] / max(stats['solves'], 1):.1f} per solve), largest "
+        f"final CG residual {stats['max_residual']:.3e}"
+    )
+    _require(launches["q_apply"] >= stats["iterations"], launches)
+    # CG stops on its own recurrence residual (1e-6), which in float32
+    # drifts from the true one; what it must match is the LU answer.
+    _check_residuals(torch, model, solutions[-1], "phase5", limit=None)
+    err = _stream_error(solutions, lu_solutions)
+    print(f"phase5 max relative stream difference to LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})")
+    _require(err <= CG_STREAM_REL_MAX, f"CG stream difference {err:.3e}")
 
 
 def phase_accuracy(st):
@@ -272,16 +510,31 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}; kernel build {build_s:.2f} s")
     t0 = time.perf_counter()
-    device = four_ring_stack(st, 20000)
-    print(f"mesh of the four-ring stack: {time.perf_counter() - t0:.3f} s")
+    device = four_ring_stack(st, SITES_DENSE)
+    large = four_ring_stack(st, SITES_LARGE)
+    print(f"mesh of the two four-ring stacks: {time.perf_counter() - t0:.3f} s")
     rows = phase_kernels(torch, kernels, cuda_kernels, device)
+    rows.update(phase_lowmem_kernels(torch, kernels, cuda_kernels, large))
     launches = phase_solve(torch, st, cuda_kernels, device)
     phase_accuracy(st)
+    model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
+    pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
+    del model
+    phase_cg(torch, st, cuda_kernels, large, lu_solutions)
+    # Each kernel's launches on the path it serves: the dense solve (phase
+    # 2), the low-memory solve (phase 4) and the pair-coupling solve
+    # (phase 6).
+    launches.update(q_apply=lowmem_launches["q_apply"], biot_savart_pair=pair_launches["biot_savart_pair"])
     sources = {
         "q_matrix": ("superscreen_tpu_torch/csrc/q_matrix.cu", "superscreen_tpu/ops/pallas_kernels.py:138"),
         "biot_savart_batch": (
             "superscreen_tpu_torch/csrc/biot_savart.cu",
             "superscreen_tpu/ops/pallas_kernels.py:201",
+        ),
+        "q_apply": ("superscreen_tpu_torch/csrc/q_apply.cu", "superscreen_tpu/ops/pallas_kernels.py:508"),
+        "biot_savart_pair": (
+            "superscreen_tpu_torch/csrc/biot_savart_pair.cu",
+            "superscreen_tpu/ops/pallas_kernels.py:336",
         ),
     }
     summary = [
@@ -293,7 +546,7 @@ def main() -> int:
             launches=launches[name],
             **rows[name],
         )
-        for name in ("q_matrix", "biot_savart_batch")
+        for name in sources
     ]
     print(smi)
     print(json.dumps({"kernels": summary}))

@@ -106,20 +106,6 @@ bs_partial_kernel(const sstt::Vec2<T>* __restrict__ src,
     }
 }
 
-template <typename T>
-__global__ void bs_reduce_kernel(const T* __restrict__ partial, int64_t splits,
-                                 int64_t count, T* __restrict__ out) {
-    const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (k >= count) {
-        return;
-    }
-    T sum = T(0);
-    for (int64_t s = 0; s < splits; ++s) {
-        sum += partial[s * count + k];
-    }
-    out[k] = sstt::one_over_4pi<T>() * sum;
-}
-
 template <typename T, int BC>
 void launch_partial(const T* src, const T* areas, const T* J, const T* dst, T dz2,
                     int64_t n1, int64_t n2, int64_t B, int64_t splits,
@@ -156,9 +142,7 @@ int launch_biot_savart(const T* src, const T* areas, const T* J, const T* dst, T
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
-    const int64_t count = B * n2;
-    bs_reduce_kernel<T><<<sstt::ceil_div(count, 256), 256, 0, stream>>>(partial, splits, count, out);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(sstt::reduce_partials<T>(partial, splits, B * n2, out, stream));
 }
 
 }  // namespace

@@ -28,4 +28,36 @@ inline unsigned int ceil_div(int64_t a, int64_t b) {
     return static_cast<unsigned int>((a + b - 1) / b);
 }
 
+// Internal linkage: each source file gets its own copy of the kernel, so
+// the separately compiled objects of the library never share a kernel
+// symbol.
+namespace {
+
+// out[k] = 1/(4 pi) * sum_s partial[s * count + k], the splits added in a
+// fixed order (deterministic, no atomics).  The second pass of every
+// kernel that splits its reduction range over blocks.
+template <typename T>
+__global__ void reduce_partials_kernel(const T* __restrict__ partial, int64_t splits,
+                                       int64_t count, T* __restrict__ out) {
+    const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (k >= count) {
+        return;
+    }
+    T sum = T(0);
+    for (int64_t s = 0; s < splits; ++s) {
+        sum += partial[s * count + k];
+    }
+    out[k] = one_over_4pi<T>() * sum;
+}
+
+template <typename T>
+cudaError_t reduce_partials(const T* partial, int64_t splits, int64_t count, T* out,
+                            cudaStream_t stream) {
+    reduce_partials_kernel<T><<<ceil_div(count, 256), 256, 0, stream>>>(partial, splits,
+                                                                        count, out);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
 }  // namespace sstt

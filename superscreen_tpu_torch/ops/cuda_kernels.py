@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
-The sources live in ``superscreen_tpu_torch/csrc``.  At first use they are
-compiled with ``nvcc`` into one shared library with a plain C interface
+The sources live in ``superscreen_tpu_torch/csrc``.  At first use each is
+compiled by its own ``nvcc`` process, all started together, and the
+objects are linked into one shared library with a plain C interface
 under ``superscreen_tpu_torch/_build`` (named by a hash of the sources and
 flags, so an edited source is rebuilt) and bound with ``ctypes``.  Nothing
 is compiled or loaded when this module is imported.
@@ -24,18 +25,26 @@ from typing import Optional
 
 import torch
 
-__all__ = ["LAUNCHES", "load_library", "q_matrix", "biot_savart_batch"]
+__all__ = [
+    "LAUNCHES",
+    "load_library",
+    "q_matrix",
+    "biot_savart_batch",
+    "q_apply",
+    "biot_savart_pair",
+]
 
 #: Launch counts per kernel; a wrapper adds one each time it launches.
-LAUNCHES = {"q_matrix": 0, "biot_savart_batch": 0}
+LAUNCHES = {"q_matrix": 0, "biot_savart_batch": 0, "q_apply": 0, "biot_savart_pair": 0}
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PACKAGE_DIR / "csrc"
 _BUILD_DIR = _PACKAGE_DIR / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _SUPPORTED = (torch.float32, torch.float64)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -56,23 +65,40 @@ def _nvcc() -> str:
 
 
 def _build(sources, target: Path) -> None:
-    """Compiles ``sources`` into ``target`` through a temporary file that is
-    renamed into place, so concurrent builders never see a partial file."""
+    """Compiles each of ``sources`` into an object file, all ``nvcc``
+    processes started together, links them into ``target`` through a
+    temporary file that is renamed into place (so concurrent builders never
+    see a partial file), and removes the objects."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
     try:
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        objects, procs = [], []
+        for source in sources:
+            obj = work / f"{Path(source).stem}.o"
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+            objects.append(str(obj))
+        failures = []
+        for cmd, proc in procs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = work / target.name
+        cmd = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *objects]
         result = subprocess.run(cmd, capture_output=True, text=True)
         if result.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({result.returncode}):\n{' '.join(cmd)}\n"
+                f"nvcc link failed ({result.returncode}):\n{' '.join(cmd)}\n"
                 f"{result.stdout}\n{result.stderr}"
             )
         os.replace(tmp, target)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -84,6 +110,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"sstt_biot_savart_{suffix}")
         fn.argtypes = [ptr, ptr, ptr, ptr, scalar, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"sstt_q_apply_{suffix}")
+        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"sstt_biot_savart_pair_{suffix}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, scalar, i64, i64, i64, i64, i64,
+                       ptr, ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -93,7 +126,7 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             sources = sorted(_CSRC.glob("*.cu"))
-            digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+            digest = hashlib.sha256(" ".join(_NVCC_FLAGS + _LINK_FLAGS).encode())
             for path in sorted(_CSRC.glob("*.cu*")):
                 digest.update(path.name.encode())
                 digest.update(path.read_bytes())
@@ -116,6 +149,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     # (x, y) pairs are read with one vector load each.
     if shape[-1] == 2 and t.data_ptr() % (2 * t.element_size()):
         raise ValueError(f"{name} must be aligned to {2 * t.element_size()} bytes.")
+
+
+def _same_device(reference: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {reference} on {ref.device}.")
 
 
 def _raise_on_error(kernel: str, code: int) -> None:
@@ -147,10 +186,10 @@ def q_matrix(points: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _source_splits(n1: int, n2: int, device: torch.device) -> int:
-    """Source-range splits so that the grid has about four blocks per SM."""
+def _source_splits(n1: int, eval_blocks: int, device: torch.device) -> int:
+    """Source-range splits (of ``n1`` sources) so that a grid of
+    ``eval_blocks`` evaluation blocks has about four blocks per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    eval_blocks = -(-n2 // 128)
     tiles = -(-n1 // 128)
     return max(1, min(tiles, -(-4 * sms // eval_blocks), 65535))
 
@@ -176,10 +215,8 @@ def biot_savart_batch(
     _check("src_areas", src_areas, dtype, (n1,))
     _check("J", J, dtype, (B, n1, 2))
     _check("dst_sites", dst_sites, dtype, (n2, 2))
-    for name, t in (("src_areas", src_areas), ("J", J), ("dst_sites", dst_sites)):
-        if t.device != src_sites.device:
-            raise ValueError(f"{name} is on {t.device}, src_sites on {src_sites.device}.")
-    splits = _source_splits(n1, n2, src_sites.device)
+    _same_device("src_sites", src_sites, src_areas=src_areas, J=J, dst_sites=dst_sites)
+    splits = _source_splits(n1, -(-n2 // 128), src_sites.device)
     partial = torch.empty((splits, B, n2), dtype=dtype, device=src_sites.device)
     out = torch.empty((B, n2), dtype=dtype, device=src_sites.device)
     with torch.cuda.device(src_sites.device):
@@ -193,3 +230,82 @@ def biot_savart_batch(
     _raise_on_error("biot_savart_batch", code)
     LAUNCHES["biot_savart_batch"] += 1
     return out
+
+
+def q_apply(eval_sites: torch.Tensor, src_sites: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``(1/4 pi) q(eval_sites, src_sites) @ V`` with
+    ``q = |r_eval - r_src|^-3`` and zero at coincident points, for
+    ``(m, 2)`` ``eval_sites``, ``(n, 2)`` ``src_sites`` and ``(n, k)``
+    ``V``.  Returns ``(m, k)``; ``q`` is never stored."""
+    suffix = _suffix(eval_sites.dtype)
+    dtype = eval_sites.dtype
+    m, n = eval_sites.shape[0], src_sites.shape[0]
+    if V.ndim != 2:
+        raise ValueError(f"V must have shape (n, k), got {tuple(V.shape)}.")
+    k = V.shape[1]
+    _check("eval_sites", eval_sites, dtype, (m, 2))
+    _check("src_sites", src_sites, dtype, (n, 2))
+    _check("V", V, dtype, (n, k))
+    _same_device("eval_sites", eval_sites, src_sites=src_sites, V=V)
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, k), dtype=dtype, device=eval_sites.device)
+    splits = _source_splits(n, -(-m // 128), eval_sites.device)
+    partial = torch.empty((splits, m, k), dtype=dtype, device=eval_sites.device)
+    out = torch.empty((m, k), dtype=dtype, device=eval_sites.device)
+    with torch.cuda.device(eval_sites.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"sstt_q_apply_{suffix}")(
+            eval_sites.data_ptr(), src_sites.data_ptr(), V.data_ptr(),
+            m, n, k, splits, partial.data_ptr(), out.data_ptr(), stream,
+        )
+    _raise_on_error("q_apply", code)
+    LAUNCHES["q_apply"] += 1
+    return out
+
+
+def biot_savart_pair(
+    sites1: torch.Tensor,
+    areas1: torch.Tensor,
+    J1: torch.Tensor,
+    sites2: torch.Tensor,
+    areas2: torch.Tensor,
+    J2: torch.Tensor,
+    dz2: float,
+):
+    """Both directions of a film pair from one geometry pass: the field at
+    ``sites2`` from the currents ``J1`` (``(B, n1, 2)``) of film 1 and the
+    field at ``sites1`` from ``J2`` (``(B, n2, 2)``) of film 2, at squared
+    height difference ``dz2``.  Returns ``((B, n2), (B, n1))``."""
+    suffix = _suffix(sites1.dtype)
+    dtype = sites1.dtype
+    n1, n2 = sites1.shape[0], sites2.shape[0]
+    if J1.ndim != 3:
+        raise ValueError(f"J1 must have shape (B, n1, 2), got {tuple(J1.shape)}.")
+    B = J1.shape[0]
+    _check("sites1", sites1, dtype, (n1, 2))
+    _check("areas1", areas1, dtype, (n1,))
+    _check("J1", J1, dtype, (B, n1, 2))
+    _check("sites2", sites2, dtype, (n2, 2))
+    _check("areas2", areas2, dtype, (n2,))
+    _check("J2", J2, dtype, (B, n2, 2))
+    _same_device("sites1", sites1, areas1=areas1, J1=J1, sites2=sites2, areas2=areas2, J2=J2)
+    # Film-2 points per block of the kernel (BP_POINTS in biot_savart_pair.cu).
+    eval_blocks = -(-n2 // 512)
+    splits = _source_splits(n1, eval_blocks, sites1.device)
+    fwd_partial = torch.empty((splits, B, n2), dtype=dtype, device=sites1.device)
+    rev_partial = torch.empty((eval_blocks, B, n1), dtype=dtype, device=sites1.device)
+    out2 = torch.empty((B, n2), dtype=dtype, device=sites1.device)
+    out1 = torch.empty((B, n1), dtype=dtype, device=sites1.device)
+    with torch.cuda.device(sites1.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"sstt_biot_savart_pair_{suffix}")(
+            sites1.data_ptr(), areas1.data_ptr(), J1.data_ptr(),
+            sites2.data_ptr(), areas2.data_ptr(), J2.data_ptr(), float(dz2),
+            n1, n2, B, splits, eval_blocks, fwd_partial.data_ptr(), rev_partial.data_ptr(),
+            out2.data_ptr(), out1.data_ptr(), stream,
+        )
+    _raise_on_error("biot_savart_pair", code)
+    LAUNCHES["biot_savart_pair"] += 1
+    return out2, out1

@@ -1,5 +1,5 @@
-"""Dense pairwise kernels: the Brandt kernel ``Q`` and inter-film
-Biot-Savart coupling.
+"""Pairwise kernels: the Brandt kernel ``Q`` (dense, or applied
+matrix-free) and inter-film Biot-Savart coupling.
 
 Counterpart of ``superscreen_tpu/ops/kernels.py``.  Each public function
 dispatches on the device of its input tensors: a CPU tensor takes the
@@ -8,6 +8,8 @@ launches the hand-written kernel of :mod:`.cuda_kernels`, and any other
 device raises.  There is no fallback from one to the other.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -15,8 +17,11 @@ from . import cuda_kernels
 
 __all__ = [
     "q_matrix",
+    "q_apply_rect",
+    "q_apply",
     "C_vector",
     "Q_matrix",
+    "Q_apply",
     "biot_savart_film_to_film_dz2",
     "biot_savart_pair_dz2",
 ]
@@ -37,19 +42,22 @@ def _uses_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"Unsupported tensor device {t.device} (expected cpu or cuda).")
 
 
+def _q_block(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``q(rows, src) = 1/(4 pi |r_i - r_j|^3)``, zero where the points
+    coincide."""
+    d2 = torch.sum((rows[:, None, :] - src[None, :, :]) ** 2, dim=-1)
+    positive = d2 > 0
+    r = torch.rsqrt(torch.where(positive, d2, torch.ones_like(d2)))
+    return torch.where(positive, _ONE_OVER_4PI * (r * r * r), torch.zeros_like(d2))
+
+
 def q_matrix_plain(points: torch.Tensor, block: int = _BLOCK) -> torch.Tensor:
     """Plain PyTorch ``q_ij = 1/(4 pi |r_i - r_j|^3)`` with zero diagonal
     (and zero at coincident points), computed in row blocks."""
     n = points.shape[0]
     out = torch.empty((n, n), dtype=points.dtype, device=points.device)
     for lo in range(0, n, block):
-        rows = points[lo : lo + block]
-        d2 = torch.sum((rows[:, None, :] - points[None, :, :]) ** 2, dim=-1)
-        positive = d2 > 0
-        r = torch.rsqrt(torch.where(positive, d2, torch.ones_like(d2)))
-        out[lo : lo + block] = torch.where(
-            positive, _ONE_OVER_4PI * (r * r * r), torch.zeros_like(d2)
-        )
+        out[lo : lo + block] = _q_block(points[lo : lo + block], points)
     return out
 
 
@@ -65,6 +73,51 @@ def q_matrix(points: torch.Tensor) -> torch.Tensor:
     if _uses_kernel(points):
         return cuda_kernels.q_matrix(points.contiguous())
     return q_matrix_plain(points)
+
+
+def q_apply_plain(
+    eval_sites: torch.Tensor, src_sites: torch.Tensor, V: torch.Tensor, block: int = _BLOCK
+) -> torch.Tensor:
+    """Plain PyTorch ``q(eval_sites, src_sites) @ V`` for ``V`` of shape
+    ``(n, k)``, in blocks of evaluation rows (``O(block * n)`` memory)."""
+    out = torch.empty((eval_sites.shape[0], V.shape[1]), dtype=V.dtype, device=V.device)
+    for lo in range(0, eval_sites.shape[0], block):
+        out[lo : lo + block] = _q_block(eval_sites[lo : lo + block], src_sites) @ V
+    return out
+
+
+def q_apply_rect(
+    eval_sites: torch.Tensor, src_sites: torch.Tensor, vecs: torch.Tensor
+) -> torch.Tensor:
+    """Matrix-free rectangular ``q @ vecs``: rows are ``eval_sites``
+    (``(m, 2)``), columns ``src_sites`` (``(n, 2)``); coincident points
+    contribute zero, as on the square kernel's diagonal.  ``q`` is never
+    stored.
+
+    Args:
+        eval_sites: ``(m, 2)`` evaluation points.
+        src_sites: ``(n, 2)`` source points.
+        vecs: ``(n,)`` or ``(n, k)``.
+
+    Returns:
+        ``(m,)`` or ``(m, k)``, matching ``vecs``.
+    """
+    squeeze = vecs.ndim == 1
+    V = vecs[:, None] if squeeze else vecs
+    if _uses_kernel(eval_sites):
+        out = cuda_kernels.q_apply(
+            eval_sites.contiguous(), src_sites.contiguous(), V.contiguous()
+        )
+    else:
+        out = q_apply_plain(eval_sites, src_sites, V)
+    return out[:, 0] if squeeze else out
+
+
+def q_apply(points: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``q @ vecs`` for the square kernel on ``points``: the
+    backbone of the low-memory path, with ``O(n)`` memory instead of the
+    ``(n, n)`` matrix."""
+    return q_apply_rect(points, points, vecs)
 
 
 def C_vector(points: torch.Tensor) -> torch.Tensor:
@@ -93,6 +146,28 @@ def Q_matrix(points: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     Q = q.neg_()
     Q.diagonal().copy_(diag)
     return Q
+
+
+def Q_apply(points: torch.Tensor, weights: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``Q @ vecs`` for the Brandt kernel
+    ``Q_ij = -q_ij + delta_ij (C_i + sum_l q_il w_l) / w_i``, in one
+    :func:`q_apply` launch: the row sums ``q @ w`` ride along as an extra
+    column.
+
+    Args:
+        points: ``(n, 2)`` mesh sites.
+        weights: ``(n,)`` vertex areas.
+        vecs: ``(n,)`` or ``(n, k)``.
+
+    Returns:
+        ``Q @ vecs``, shaped like ``vecs``.
+    """
+    squeeze = vecs.ndim == 1
+    V = vecs[:, None] if squeeze else vecs
+    qV = q_apply(points, torch.cat([V, weights[:, None]], dim=1))
+    diag = (C_vector(points) + qV[:, -1]) / weights
+    out = diag[:, None] * V - qV[:, :-1]
+    return out[:, 0] if squeeze else out
 
 
 def biot_savart_plain(
@@ -151,12 +226,65 @@ def biot_savart_film_to_film_dz2(
     return out[0] if squeeze else out
 
 
+def biot_savart_pair_plain(
+    sites1: torch.Tensor,
+    areas1: torch.Tensor,
+    J1: torch.Tensor,
+    sites2: torch.Tensor,
+    areas2: torch.Tensor,
+    J2: torch.Tensor,
+    dz2: float,
+    block: int = _BLOCK,
+):
+    """Plain PyTorch twin of the ``biot_savart_pair`` kernel: both
+    directions of a film pair from one geometry pass, ``J1`` ``(B, n1, 2)``
+    and ``J2`` ``(B, n2, 2)``.  Each block of film-2 rows builds the
+    geometry ``K = (dx, dy) r^-3`` once and contracts it with film 1's
+    currents (field at film 2) and, transposed, with film 2's (field at
+    film 1).  Returns ``((B, n2), (B, n1))``."""
+    aJ1x = (areas1[None, :] * J1[:, :, 0]).T  # (n1, B)
+    aJ1y = (areas1[None, :] * J1[:, :, 1]).T
+    aJ2x = areas2[None, :] * J2[:, :, 0]  # (B, n2)
+    aJ2y = areas2[None, :] * J2[:, :, 1]
+    n2 = sites2.shape[0]
+    out2 = torch.empty((n2, J1.shape[0]), dtype=J1.dtype, device=J1.device)
+    out1 = torch.zeros((J2.shape[0], sites1.shape[0]), dtype=J2.dtype, device=J2.device)
+    for lo in range(0, n2, block):
+        rows = sites2[lo : lo + block]
+        dx = rows[:, 0:1] - sites1[None, :, 0]
+        dy = rows[:, 1:2] - sites1[None, :, 1]
+        r = torch.rsqrt(dx * dx + dy * dy + dz2)
+        r3 = r * r * r
+        Kx, Ky = dx * r3, dy * r3
+        out2[lo : lo + block] = Ky @ aJ1x - Kx @ aJ1y
+        out1 += aJ2y[:, lo : lo + block] @ Kx - aJ2x[:, lo : lo + block] @ Ky
+    return (_ONE_OVER_4PI * out2).T.contiguous(), _ONE_OVER_4PI * out1
+
+
 def biot_savart_pair_dz2(
     film1_sites, film1_areas, film1_J, film2_sites, film2_areas, film2_J, dz2
 ):
-    """Both directions of an inter-film coupling pair, as two one-way
-    passes.  Returns ``(field_at_2_from_1, field_at_1_from_2)``."""
-    return (
-        biot_savart_film_to_film_dz2(film1_sites, film1_areas, film1_J, film2_sites, dz2),
-        biot_savart_film_to_film_dz2(film2_sites, film2_areas, film2_J, film1_sites, dz2),
-    )
+    """Both directions of an inter-film coupling pair.  Returns
+    ``(field_at_2_from_1, field_at_1_from_2)``, each ``(B, n)`` (or ``(n,)``
+    for unbatched ``(n, 2)`` currents).
+
+    With ``SUPERSCREEN_TPU_PAIR_COUPLING=1`` (read at call time) both
+    directions come from one geometry pass (the ``biot_savart_pair``
+    kernel, or its plain twin on the CPU); otherwise they are two one-way
+    passes.  The JAX package also gates the fused path on the footprint of
+    its reverse output in TPU VMEM; that is a TPU limit and has no
+    counterpart here.
+    """
+    if os.environ.get("SUPERSCREEN_TPU_PAIR_COUPLING", "0") != "1":
+        return (
+            biot_savart_film_to_film_dz2(film1_sites, film1_areas, film1_J, film2_sites, dz2),
+            biot_savart_film_to_film_dz2(film2_sites, film2_areas, film2_J, film1_sites, dz2),
+        )
+    squeeze = film1_J.ndim == 2
+    J1, J2 = (film1_J[None], film2_J[None]) if squeeze else (film1_J, film2_J)
+    args = (film1_sites, film1_areas, J1, film2_sites, film2_areas, J2)
+    if _uses_kernel(J1):
+        at2, at1 = cuda_kernels.biot_savart_pair(*(t.contiguous() for t in args), dz2)
+    else:
+        at2, at1 = biot_savart_pair_plain(*args, dz2)
+    return (at2[0], at1[0]) if squeeze else (at2, at1)

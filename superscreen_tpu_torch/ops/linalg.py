@@ -1,17 +1,38 @@
-"""Dense linear algebra for the film systems.
+"""Linear algebra for the film systems.
 
-Counterpart of the dense LU path of ``superscreen_tpu/ops/linalg.py``:
-``-A`` is LU-factorized with :func:`torch.linalg.lu_factor` on the
-system's device, and solves use safeguarded fixed-count iterative
-refinement so that each returned column is the iterate with the smallest
-residual.
+Counterpart of the LU and matrix-free CG paths of
+``superscreen_tpu/ops/linalg.py``: ``-A`` is LU-factorized with
+:func:`torch.linalg.lu_factor` on the system's device, and solves use
+safeguarded fixed-count iterative refinement so that each returned column
+is the iterate with the smallest residual.  A film whose system is not
+materialized is solved by Jacobi-preconditioned CG on the matrix-free
+operator :func:`brandt_matvec`.
 """
 
-from typing import Callable, Tuple
+import logging
+import os
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["factor_system", "lu_solve", "refine_safeguarded"]
+from . import kernels
+
+logger = logging.getLogger("solve")
+
+__all__ = [
+    "factor_system",
+    "lu_solve",
+    "refine_safeguarded",
+    "large_factor_method",
+    "brandt_matvec",
+    "brandt_cg_solve_host",
+    "CG_STATS",
+]
+
+#: Totals over the matrix-free CG solves since the last reset: ``solves``,
+#: ``iterations``, and the largest final relative residual ``max_residual``.
+CG_STATS = {"solves": 0, "iterations": 0, "max_residual": 0.0}
 
 
 def _pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
@@ -70,3 +91,128 @@ def refine_safeguarded(
         best_x = torch.where((r2 < best_r2)[None, :], x, best_x)
         best_r2 = torch.minimum(r2, best_r2)
     return best_x
+
+
+def large_factor_method() -> str:
+    """Reads and validates ``SUPERSCREEN_TPU_LARGE_FACTOR``, as the JAX
+    package does (a typo raises instead of selecting a default).  ``"cg"``
+    solves low-memory films matrix-free; every other value factorizes
+    their materialized system with the LU above, as the JAX package does
+    on the CPU for every method."""
+    method = os.environ.get("SUPERSCREEN_TPU_LARGE_FACTOR", "inv")
+    if method not in ("schur", "inv", "chol", "schulz", "cg"):
+        raise ValueError(
+            f"Unknown SUPERSCREEN_TPU_LARGE_FACTOR {method!r} "
+            "(expected 'schur', 'inv', 'chol', 'schulz', or 'cg')."
+        )
+    return method
+
+
+def brandt_matvec(op: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``A @ x`` for the Brandt system restricted to a film's
+    interior: ``A = (-q_sub + diag(d)) diag(w) - L_lam``, with the q-block
+    applied by the ``q_apply`` kernel and never stored.
+
+    Args:
+        op: Operator pieces: ``sub_sites (ni, 2)``, ``w_sub (ni,)``,
+            ``diag (ni,)`` (the regularized Brandt diagonal, computed from
+            the full site set), and the Lambda-scaled restricted Laplacian
+            as COO triplets ``lap_rows``, ``lap_cols``, ``lap_vals``.
+        x: ``(ni,)`` or ``(ni, B)``.
+
+    Returns:
+        ``A @ x``, shaped like ``x``.
+    """
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    wx = op["w_sub"][:, None] * x
+    Ax = -kernels.q_apply(op["sub_sites"], wx) + op["diag"][:, None] * wx
+    contrib = op["lap_vals"][:, None] * x[op["lap_cols"]]
+    Ax = Ax - torch.zeros_like(Ax).index_add_(0, op["lap_rows"], contrib)
+    return Ax[:, 0] if squeeze else Ax
+
+
+def _jacobi_minv(op: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Jacobi preconditioner diagonal for ``P = A diag(1/w)``, ``(ni, 1)``."""
+    w = op["w_sub"]
+    rows, cols, vals = op["lap_rows"], op["lap_cols"], op["lap_vals"]
+    lam_diag = torch.zeros_like(w).index_add_(
+        0, rows, torch.where(rows == cols, vals, torch.zeros_like(vals))
+    )
+    p_diag = op["diag"] - lam_diag / w
+    return torch.where(p_diag.abs() > 0, 1.0 / p_diag, torch.ones_like(p_diag))[:, None]
+
+
+def _warn_if_unconverged(res: float, tol: float, method: str) -> None:
+    """A matrix-free solve returns its final iterate either way; warn when
+    it stopped above ``tol`` (a diagnostic, not a fallback)."""
+    if not np.isfinite(res) or res > tol:
+        logger.warning(
+            f"Matrix-free {method} solve did NOT converge: final relative "
+            f"residual {res:.3e} > tol {tol:.0e}. The returned stream "
+            f"function may be inaccurate; consider raising "
+            f"SUPERSCREEN_TPU_MAX_MATERIALIZED_N to use a direct solve."
+        )
+
+
+def brandt_cg_solve_host(
+    op: Dict[str, torch.Tensor],
+    h: torch.Tensor,
+    tol: float = 1e-6,
+    maxiter: int = 1000,
+    chunk: int = 25,
+) -> torch.Tensor:
+    """Solves ``(-A) x = h`` matrix-free by Jacobi-preconditioned CG.
+
+    ``P = A diag(1/w)`` is symmetric positive definite, so CG runs on
+    ``P y = -h`` and ``x = y / w``.  Iterations run in chunks of ``chunk``;
+    after each chunk the largest relative residual over the columns is
+    read on the host (one synchronisation), and the solve stops below
+    ``tol`` or at ``maxiter``.  Converged columns are held still by the
+    zero-guarded step sizes.
+
+    Args:
+        op: Operator pieces (see :func:`brandt_matvec`).
+        h: ``(ni,)`` or ``(ni, B)`` right-hand sides.
+
+    Returns:
+        ``x``, shaped like ``h``.
+    """
+    squeeze = h.ndim == 1
+    if squeeze:
+        h = h[:, None]
+    w = op["w_sub"][:, None]
+    minv = _jacobi_minv(op)
+    b = -h
+    bnorm = torch.clamp(torch.linalg.vector_norm(b, dim=0), min=1e-30)
+    x = torch.zeros_like(b)
+    r = b
+    z = minv * r
+    p = z
+    rz = torch.sum(r * z, dim=0)
+    zero = torch.zeros_like(rz)
+    done = 0
+    res = np.inf
+    while done < maxiter:
+        for _ in range(min(chunk, maxiter - done)):
+            Ap = brandt_matvec(op, p / w)
+            pAp = torch.sum(p * Ap, dim=0)
+            alpha = torch.where(pAp.abs() > 0, rz / pAp, zero)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * Ap
+            z = minv * r
+            rz_new = torch.sum(r * z, dim=0)
+            beta = torch.where(rz.abs() > 0, rz_new / rz, zero)
+            p = z + beta[None, :] * p
+            rz = rz_new
+        done += min(chunk, maxiter - done)
+        res = float(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm))
+        if res < tol or not np.isfinite(res):
+            break
+    _warn_if_unconverged(res, tol, "CG")
+    CG_STATS["solves"] += 1
+    CG_STATS["iterations"] += done
+    CG_STATS["max_residual"] = max(CG_STATS["max_residual"], res)
+    x = x / w
+    return x[:, 0] if squeeze else x

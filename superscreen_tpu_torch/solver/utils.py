@@ -1,23 +1,28 @@
 """Solver support: film metadata and unit conversion.
 
-Counterpart of ``superscreen_tpu/solver/utils.py`` for dense films.
-:class:`FilmInfo` gathers what the per-film systems need: the index sets
-for holes, boundary and interior (host NumPy) and the dense operator
-blocks ``Q`` and the Laplacian, assembled directly on the torch device in
-the solve dtype.
+Counterpart of ``superscreen_tpu/solver/utils.py``.  :class:`FilmInfo`
+gathers what the per-film systems need: the index sets for holes,
+boundary and interior (host NumPy) and the operator blocks.  A film of at
+most :data:`MAX_DENSE_KERNEL_SIZE` sites gets the dense ``Q`` and
+Laplacian, assembled directly on the torch device in the solve dtype; a
+larger film takes the low-memory path: no ``(n, n)`` block is built, and
+its Laplacian stays a sparse COO operator.
 """
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..device import Device, Polygon
+from ..ops.fem import COO
 from ..units import DimensionalityError, Quantity, ureg as default_ureg
 
-#: Films with more mesh sites than this take the JAX package's low-memory
-#: path, which this package does not provide yet.
+#: Films with more mesh sites than this take the low-memory path: the
+#: Brandt kernel is applied matrix-free (``ops.kernels.q_apply``) and never
+#: materialized at full size.  The same threshold as the JAX package's
+#: default, so the same films take the same path.
 MAX_DENSE_KERNEL_SIZE = 25000
 
 __all__ = [
@@ -70,10 +75,14 @@ class FilmInfo:
         circulating_currents: ``{hole_name: current}``.
         weights: Mesh vertex areas (torch, solve dtype).
         kernel: Dense Brandt kernel ``Q`` (torch, solve dtype); released
-            once the film's systems are factorized.
-        laplacian: Dense Laplace-Beltrami operator (torch, solve dtype);
-            released once the film's systems are factorized.
+            once the film's systems are factorized.  None on the
+            low-memory path.
+        laplacian: Laplace-Beltrami operator: dense (torch, solve dtype)
+            and released once the film's systems are factorized, or, on
+            the low-memory path, the sparse COO operator (kept).
         sites: Mesh site coordinates in the solve dtype (NumPy).
+        dense_kernel: False for a film on the low-memory path (more than
+            :data:`MAX_DENSE_KERNEL_SIZE` sites).
     """
 
     name: str
@@ -86,8 +95,9 @@ class FilmInfo:
     circulating_currents: Dict[str, float]
     weights: torch.Tensor
     kernel: Optional[torch.Tensor]
-    laplacian: Optional[torch.Tensor]
+    laplacian: Optional[Union[torch.Tensor, COO]]
     sites: np.ndarray
+    dense_kernel: bool = True
 
 
 def _hole_index_sets(mesh_sites: np.ndarray, holes: List[Polygon]):
@@ -108,9 +118,11 @@ def make_film_info(
     torch_device,
     vortices=None,
 ) -> Dict[str, FilmInfo]:
-    """Builds a :class:`FilmInfo` for every film in the device, with the
-    dense ``Q`` (through the ``q_matrix`` kernel) and Laplacian assembled
-    on ``torch_device``."""
+    """Builds a :class:`FilmInfo` for every film in the device.  A film of
+    at most :data:`MAX_DENSE_KERNEL_SIZE` sites gets the dense ``Q``
+    (through the ``q_matrix`` kernel) and Laplacian, assembled on
+    ``torch_device``; a larger film gets ``kernel=None`` and its COO
+    Laplacian."""
     if vortices:
         raise NotImplementedError("Vortices are not supported by superscreen_tpu_torch yet.")
     if not device.meshes:
@@ -125,12 +137,7 @@ def make_film_info(
     for name, film in device.films.items():
         mesh = device.meshes[name]
         n = len(mesh.sites)
-        if n > MAX_DENSE_KERNEL_SIZE:
-            raise NotImplementedError(
-                f"Film {name!r} has {n} mesh sites; films above "
-                f"{MAX_DENSE_KERNEL_SIZE} sites need the low-memory path, "
-                "which superscreen_tpu_torch does not provide yet."
-            )
+        dense_kernel = n <= MAX_DENSE_KERNEL_SIZE
         layer = device.layers[film.layer]
         hole_indices, in_hole = _hole_index_sets(mesh.sites, holes_by_film[name])
         boundary_indices = mesh.boundary_indices
@@ -158,9 +165,12 @@ def make_film_info(
             weights=torch.as_tensor(
                 ops.weights.astype(dtype), device=torch_device
             ),
-            kernel=ops.Q_dense(tdtype, torch_device),
-            laplacian=ops.laplacian.to_dense(tdtype, torch_device),
+            kernel=ops.Q_dense(tdtype, torch_device) if dense_kernel else None,
+            laplacian=(
+                ops.laplacian.to_dense(tdtype, torch_device) if dense_kernel else ops.laplacian
+            ),
             sites=mesh.sites.astype(dtype, copy=False),
+            dense_kernel=dense_kernel,
         )
     return film_info
 

@@ -1,15 +1,18 @@
 """The batched solve machinery behind :func:`solve`.
 
-Counterpart of the dense-LU, exact-coupling parts of
+Counterpart of the LU, CG and exact-coupling parts of
 ``superscreen_tpu/sweep.py``.  ``B`` right-hand sides (sweep points) are
-solved at once against each film's LU factorization; the self-consistent
+solved at once against each film's LU factorization, or by matrix-free CG
+for a film whose system is not materialized; the self-consistent
 inter-film coupling runs as a Python loop of rounds, each an exact
-pairwise Biot-Savart exchange through the ``biot_savart_batch`` kernel.
-All tensors stay on the model's torch device.
+pairwise Biot-Savart exchange through the ``biot_savart_batch`` kernel
+(or ``biot_savart_pair`` with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``).  The
+self-field of a low-memory film is applied matrix-free through
+``q_apply``.  All tensors stay on the model's torch device.
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,10 +32,14 @@ class FilmSweepData:
         n: Number of mesh sites.
         interior: ``(ni,)`` mesh indices of the film's system.
         lu, perm: LU factorization of ``-A`` (packed factors and row
-            permutation, see :func:`ops.linalg.factor_system`).
-        A: ``(ni, ni)`` film system (for the refinement residual).
+            permutation, see :func:`ops.linalg.factor_system`); None for
+            a CG film.
+        A: ``(ni, ni)`` film system (for the refinement residual); None
+            for a CG film.
         Qw: ``(n, n)`` Brandt kernel with the vertex areas folded into its
-            columns, ``Q diag(w)``: the self-field is ``Qw @ g``.
+            columns, ``Q diag(w)``: the self-field is ``Qw @ g``.  None on
+            the low-memory path, where the self-field is applied
+            matrix-free.
         weights: ``(n,)`` vertex areas.
         gx_idx, gx_w, gy_idx, gy_w: Vertex gradients in gather form.
         sites: ``(n, 2)`` mesh sites.
@@ -41,15 +48,17 @@ class FilmSweepData:
         hole_ha_vecs: ``(n_holes, n)`` effective field of a unit
             circulating current in each hole.
         hole_names: Hole names, in the order of the rows above.
+        cg_op: Matrix-free operator pieces of a CG film, else None.
+        fac_kind: ``"lu"`` or ``"cg"``: how the film's system is solved.
     """
 
     name: str
     n: int
     interior: torch.Tensor
-    lu: torch.Tensor
-    perm: torch.Tensor
-    A: torch.Tensor
-    Qw: torch.Tensor
+    lu: Optional[torch.Tensor]
+    perm: Optional[torch.Tensor]
+    A: Optional[torch.Tensor]
+    Qw: Optional[torch.Tensor]
     weights: torch.Tensor
     gx_idx: torch.Tensor
     gx_w: torch.Tensor
@@ -60,6 +69,8 @@ class FilmSweepData:
     hole_masks: torch.Tensor
     hole_ha_vecs: torch.Tensor
     hole_names: Sequence[str] = field(default_factory=list)
+    cg_op: Optional[Dict[str, torch.Tensor]] = None
+    fac_kind: str = "lu"
 
 
 def _coo_to_gather(coo, n_rows: int, dtype, torch_device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,8 +104,9 @@ def _gather_matvec_batch(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) ->
 def film_sweep_data(model, film_name: str) -> FilmSweepData:
     """Builds a film's :class:`FilmSweepData` from a factorized model.
 
-    ``Q diag(w)`` is formed in place in the film's ``Q`` buffer, which the
-    film info then releases: the solve needs nothing else of ``Q``.
+    For a dense film, ``Q diag(w)`` is formed in place in the film's ``Q``
+    buffer, which the film info then releases: the solve needs nothing
+    else of ``Q``.  A low-memory film keeps no kernel (``Qw`` is None).
     """
     device = model.device
     info = model.film_info[film_name]
@@ -110,14 +122,20 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
     for k, hole in enumerate(hole_names):
         idx = torch.as_tensor(info.hole_indices[hole], device=torch_device)
         hole_masks[k, idx] = 1.0
-        # Effective field from a unit circulating current in this hole.
+        # Effective field from a unit circulating current in this hole:
+        # -(A_hole @ 1), already a vector on the low-memory path.
         A_hole = model.hole_systems[film_name][hole].A
-        hole_ha[k] = -(A_hole @ torch.ones(len(idx), dtype=w.dtype, device=torch_device))
+        if A_hole.ndim == 1:
+            hole_ha[k] = -A_hole
+        else:
+            hole_ha[k] = -(A_hole @ torch.ones(len(idx), dtype=w.dtype, device=torch_device))
     gx_idx, gx_w = _coo_to_gather(mesh.operators.gradient_x, n, dtype, torch_device)
     gy_idx, gy_w = _coo_to_gather(mesh.operators.gradient_y, n, dtype, torch_device)
-    Qw = info.kernel.mul_(w[None, :])
-    info.kernel = None
-    lu, perm = system.lu_piv
+    Qw = None
+    if info.dense_kernel:
+        Qw = info.kernel.mul_(w[None, :])
+        info.kernel = None
+    lu, perm = system.lu_piv if system.cg_op is None else (None, None)
     return FilmSweepData(
         name=film_name,
         n=n,
@@ -136,11 +154,17 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
         hole_masks=hole_masks,
         hole_ha_vecs=hole_ha,
         hole_names=hole_names,
+        cg_op=system.cg_op,
+        fac_kind="lu" if system.cg_op is None else "cg",
     )
 
 
 def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
-    """Self-field ``Q @ (w * g)`` for ``g`` of shape ``(B, n)``."""
+    """Self-field ``Q @ (w * g)`` for ``g`` of shape ``(B, n)``: one
+    product with ``Q diag(w)``, or on the low-memory path one matrix-free
+    :func:`ops.kernels.Q_apply` over all ``B`` columns."""
+    if data.Qw is None:
+        return kernels.Q_apply(data.sites, data.weights, (data.weights[None, :] * g).T).T
     return (data.Qw @ g.T).T
 
 
@@ -166,13 +190,17 @@ def _solve_film_batch(
     ``(B, n, 2)``."""
     g0, h = _interior_rhs(data, Hz_total, I_circ)
     hT = h.T.contiguous()  # (ni, B)
+    if data.fac_kind == "cg":
+        # CG controls its own accuracy: no refinement (and no A for it).
+        gf = linalg.brandt_cg_solve_host(data.cg_op, hT)
+    else:
 
-    def solve(rhs):
-        return linalg.lu_solve((data.lu, data.perm), rhs)
+        def solve(rhs):
+            return linalg.lu_solve((data.lu, data.perm), rhs)
 
-    gf = solve(hT)
-    if refine_steps:
-        gf = linalg.refine_safeguarded(solve, data.A, hT, gf, refine_steps)
+        gf = solve(hT)
+        if refine_steps:
+            gf = linalg.refine_safeguarded(solve, data.A, hT, gf, refine_steps)
     # The interior indices are unique, so the scatter-add is exact.
     g = g0.index_add(1, data.interior, gf.T)
     Jx = _gather_matvec_batch(data.gy_idx, data.gy_w, g)
@@ -181,9 +209,10 @@ def _solve_film_batch(
 
 
 def _coupling_round(film_data: Dict[str, FilmSweepData], films: List[str], Js, Hz_applied):
-    """One exact inter-film coupling exchange over unordered film pairs,
-    two one-way ``biot_savart_batch`` passes per pair.  Returns the field
-    each film feels from all others, ``{film: (B, n)}``."""
+    """One exact inter-film coupling exchange over unordered film pairs:
+    two one-way ``biot_savart_batch`` passes per pair, or one
+    ``biot_savart_pair`` pass with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``.
+    Returns the field each film feels from all others, ``{film: (B, n)}``."""
     new_others = {name: torch.zeros_like(Hz_applied[name]) for name in films}
     for ai, a in enumerate(films):
         for b in films[ai + 1 :]:
@@ -242,7 +271,12 @@ def _run_sweep_history(film_data, Hz_applied, I_circ, iterations: int, refine_st
 
 def relative_residual(data: FilmSweepData, Hz_total, I_circ, g) -> torch.Tensor:
     """Relative residual ``||h + A g_int|| / ||h||`` of a film's interior
-    system for a solved stream ``g`` ``(B, n)``, one value per batch row."""
+    system for a solved stream ``g`` ``(B, n)``, one value per batch row.
+    A CG film has no ``A``: its product is applied matrix-free."""
     _, h = _interior_rhs(data, Hz_total, I_circ)
-    r = h.T + data.A @ g[:, data.interior].T
+    g_int = g[:, data.interior].T
+    if data.A is None:
+        r = h.T + linalg.brandt_matvec(data.cg_op, g_int)
+    else:
+        r = h.T + data.A @ g_int
     return torch.linalg.vector_norm(r, dim=0) / torch.linalg.vector_norm(h.T, dim=0)

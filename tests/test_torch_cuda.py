@@ -62,6 +62,60 @@ def test_biot_savart_kernel_matches_plain(cuda, dtype, B):
         assert _rel_err(out, ref) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "m,n,k", [(1, 2, 1), (1777, 1777, 1), (3001, 1777, 7), (500, 4099, 2), (1000, 1000, 11)]
+)
+def test_q_apply_kernel_matches_plain(cuda, dtype, m, n, k):
+    rng = np.random.default_rng(m + n + k)
+    src = torch.as_tensor(rng.uniform(-5, 5, (n, 2)), dtype=dtype, device=cuda)
+    # The first third of the evaluation points coincide with sources.
+    ev = torch.cat([src[: m // 3], torch.as_tensor(rng.uniform(-4, 4, (m - m // 3, 2)), dtype=dtype, device=cuda)])
+    V = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype, device=cuda)
+    out = cuda_kernels.q_apply(ev, src, V)
+    ref = kernels.q_apply_plain(ev, src, V)
+    torch.cuda.synchronize()
+    assert out.shape == (m, k) and bool(torch.isfinite(out).all())
+    assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 9])
+def test_biot_savart_pair_kernel_matches_plain(cuda, dtype, B):
+    rng = np.random.default_rng(10 + B)
+    n1, n2 = 3001, 1777
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    s1, s2 = t(rng.uniform(-5, 5, (n1, 2))), t(rng.uniform(-4, 4, (n2, 2)))
+    a1, a2 = t(rng.uniform(0.01, 0.02, n1)), t(rng.uniform(0.01, 0.02, n2))
+    J1, J2 = t(rng.standard_normal((B, n1, 2))), t(rng.standard_normal((B, n2, 2)))
+    for dz2 in (0.25, 1.0):
+        at2, at1 = cuda_kernels.biot_savart_pair(s1, a1, J1, s2, a2, J2, dz2)
+        ref2, ref1 = kernels.biot_savart_pair_plain(s1, a1, J1, s2, a2, J2, dz2)
+        torch.cuda.synchronize()
+        assert at2.shape == (B, n2) and at1.shape == (B, n1)
+        assert _rel_err(at2, ref2) <= TOL[dtype]
+        assert _rel_err(at1, ref1) <= TOL[dtype]
+        # The same fields as two one-way passes of biot_savart_batch.
+        assert _rel_err(at1, cuda_kernels.biot_savart_batch(s2, a2, J2, s1, dz2)) <= TOL[dtype]
+
+
+def test_biot_savart_pair_same_height_is_finite(cuda):
+    # dz2 = 0 between films that do not overlap: masked lanes and ragged
+    # tiles must contribute exact zeros, not 0 * inf.
+    rng = np.random.default_rng(0)
+    s1 = torch.as_tensor(rng.uniform(-1, 1, (130, 2)), device=cuda)
+    s2 = torch.as_tensor(rng.uniform(3, 4, (100, 2)), device=cuda)
+    at2, at1 = cuda_kernels.biot_savart_pair(
+        s1, torch.ones(130, dtype=s1.dtype, device=cuda), torch.rand((2, 130, 2), dtype=s1.dtype, device=cuda),
+        s2, torch.ones(100, dtype=s1.dtype, device=cuda), torch.rand((2, 100, 2), dtype=s1.dtype, device=cuda),
+        0.0,
+    )
+    assert bool(torch.isfinite(at2).all()) and bool(torch.isfinite(at1).all())
+
+
 def test_dispatch_counts_launches(cuda):
     pts = torch.rand((50, 2), device=cuda)
     before = dict(cuda_kernels.LAUNCHES)
@@ -69,6 +123,22 @@ def test_dispatch_counts_launches(cuda):
     kernels.biot_savart_film_to_film_dz2(pts, torch.ones(50, device=cuda), torch.rand((50, 2), device=cuda), pts + 10, 1.0)
     assert cuda_kernels.LAUNCHES["q_matrix"] == before["q_matrix"] + 1
     assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before["biot_savart_batch"] + 1
+    kernels.q_apply(pts, torch.ones(50, device=cuda))
+    assert cuda_kernels.LAUNCHES["q_apply"] == before["q_apply"] + 1
+
+
+def test_pair_dispatch_follows_the_environment(cuda, monkeypatch):
+    pts = torch.rand((50, 2), device=cuda)
+    args = (pts, torch.ones(50, device=cuda), torch.rand((1, 50, 2), device=cuda))
+    other = (pts + 10, torch.ones(50, device=cuda), torch.rand((1, 50, 2), device=cuda))
+    before = dict(cuda_kernels.LAUNCHES)
+    two = kernels.biot_savart_pair_dz2(*args, *other, 1.0)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before["biot_savart_batch"] + 2
+    monkeypatch.setenv("SUPERSCREEN_TPU_PAIR_COUPLING", "1")
+    one = kernels.biot_savart_pair_dz2(*args, *other, 1.0)
+    assert cuda_kernels.LAUNCHES["biot_savart_pair"] == before["biot_savart_pair"] + 1
+    for a, b in zip(one, two):
+        assert _rel_err(a, b) <= TOL[torch.float32]
 
 
 def test_wrappers_refuse_bad_input(cuda):
@@ -78,9 +148,12 @@ def test_wrappers_refuse_bad_input(cuda):
         cuda_kernels.q_matrix(torch.zeros((2, 5), device=cuda).T)
     with pytest.raises(TypeError):
         cuda_kernels.q_matrix(torch.zeros((5, 2), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_kernels.q_apply(torch.zeros((5, 2), device=cuda), torch.zeros((4, 2), device=cuda), torch.zeros((5, 1), device=cuda))
 
 
-def test_solve_on_the_card_matches_cpu_float64(cuda):
+@pytest.mark.parametrize("low_memory", [False, True])
+def test_solve_on_the_card_matches_cpu_float64(cuda, monkeypatch, low_memory):
     layers = [st.Layer("l0", Lambda=1.0, z0=0), st.Layer("l1", Lambda=0.5, z0=1)]
     films = [
         st.Polygon("big", layer="l0", points=st.geometry.circle(7.5, points=120)),
@@ -92,6 +165,9 @@ def test_solve_on_the_card_matches_cpu_float64(cuda):
     ]
     device = st.Device("two", layers=layers, films=films, holes=holes)
     device.make_mesh(max_edge_length=0.8)
+    if low_memory:
+        # Both films take the low-memory path, on the card and on the CPU.
+        monkeypatch.setattr(st.solver.utils, "MAX_DENSE_KERNEL_SIZE", 10)
     cpu_device = device.copy()
     cpu_device.solve_dtype = "float64"
     kwargs = dict(

@@ -14,6 +14,8 @@ from superscreen_tpu.ops import kernels as jkernels
 from superscreen_tpu.ops.pallas_kernels import (
     PALLAS_AVAILABLE,
     pallas_biot_savart_batch,
+    pallas_biot_savart_pair,
+    pallas_q_apply_rect,
     pallas_q_matrix,
 )
 from superscreen_tpu_torch.ops import cuda_kernels, kernels
@@ -156,6 +158,11 @@ def test_other_devices_raise():
             torch.zeros((4, 2)), torch.ones(4), torch.zeros((1, 4, 2)),
             torch.zeros((3, 2)), 1.0,
         ),
+        lambda: cuda_kernels.q_apply(torch.zeros((4, 2)), torch.zeros((3, 2)), torch.ones((3, 1))),
+        lambda: cuda_kernels.biot_savart_pair(
+            torch.zeros((4, 2)), torch.ones(4), torch.zeros((1, 4, 2)),
+            torch.zeros((3, 2)), torch.ones(3), torch.zeros((1, 3, 2)), 1.0,
+        ),
     ],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):
@@ -166,3 +173,112 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
 def test_cuda_wrappers_refuse_other_dtypes():
     with pytest.raises(TypeError, match="float32 and float64"):
         cuda_kernels.q_matrix(torch.zeros((4, 2), dtype=torch.float16))
+
+
+def _q_apply_inputs(seed, m, n, k, coincident):
+    """Eval and source sites (the first ``coincident`` eval sites coincide
+    with source sites) and ``V`` of shape ``(n, k)``, or ``(n,)`` for
+    ``k = 0``."""
+    rng = np.random.default_rng(seed)
+    src = _sites(rng, n)
+    ev = np.concatenate([src[:coincident], _sites(rng, m - coincident) + 0.5])
+    V = rng.standard_normal((n, k) if k else n)
+    return ev, src, V
+
+
+@pytest.mark.parametrize("k", [0, 1, 5])
+@pytest.mark.parametrize("m,n", [(150, 150), (90, 131)])
+def test_q_apply_rect_matches_jax_float64(k, m, n):
+    ev, src, V = _q_apply_inputs(m + n + k, m, n, k, coincident=m // 3)
+    ref = np.asarray(jkernels.q_apply_rect(ev, src, V, block=32))
+    out = kernels.q_apply_rect(_t(ev), _t(src), _t(V)).numpy()
+    assert out.shape == ref.shape == ((m, k) if k else (m,))
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-13 * np.abs(ref).max())
+    plain = kernels.q_apply_plain(_t(ev), _t(src), _t(V).reshape(n, -1), block=16).numpy()
+    np.testing.assert_allclose(plain.reshape(ref.shape), ref, rtol=1e-12, atol=1e-13 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_q_apply_matches_jax_float64(k):
+    _, pts, V = _q_apply_inputs(40 + k, 1, 173, k, coincident=0)
+    ref = np.asarray(jkernels.q_apply(pts, V, block=32))
+    out = kernels.q_apply(_t(pts), _t(V)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-13 * np.abs(ref).max())
+    # The square kernel applied matrix-free equals the dense q_matrix product.
+    dense = kernels.q_matrix(_t(pts)).numpy() @ V
+    np.testing.assert_allclose(out, dense, rtol=1e-12, atol=1e-13 * np.abs(ref).max())
+
+
+def test_q_apply_coincident_points_contribute_zero():
+    pts = _sites(np.random.default_rng(4), 30)
+    pts[7] = pts[21]
+    out = kernels.q_apply(_t(pts), _t(np.eye(30)[:, [7, 21]])).numpy()
+    assert np.isfinite(out).all()
+    assert out[7, 1] == 0.0 and out[21, 0] == 0.0
+
+
+@needs_pallas
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("m,n", [(128, 128), (90, 131)])
+def test_q_apply_rect_matches_pallas_interpret(k, m, n):
+    ev, src, V = (a.astype(np.float32) for a in _q_apply_inputs(7 * k + m, m, n, k, m // 2))
+    ref = np.asarray(pallas_q_apply_rect(ev, src, V, tm=TM, tn=TN, interpret=True))
+    out = kernels.q_apply_rect(
+        _t(ev, torch.float32), _t(src, torch.float32), _t(V, torch.float32)
+    ).numpy()
+    assert out.shape == (m, k)
+    # float32 sums of n terms in different orders: 1e-5 of the largest value.
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_Q_apply_matches_jax(k):
+    rng = np.random.default_rng(30 + k)
+    pts = _sites(rng, 150)
+    w = rng.uniform(0.01, 0.05, size=150)
+    V = rng.standard_normal((150, k) if k else 150)
+    ref = np.asarray(jkernels.Q_apply(pts, w, V, block=32))
+    out = kernels.Q_apply(_t(pts), _t(w), _t(V)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+    dense = kernels.Q_matrix(_t(pts), _t(w)).numpy() @ V
+    np.testing.assert_allclose(out, dense, rtol=1e-10, atol=1e-12 * np.abs(ref).max())
+
+
+def _pair_inputs(seed, B, n1, n2):
+    rng = np.random.default_rng(seed)
+    s1, s2 = _sites(rng, n1), _sites(rng, n2) + 0.5
+    a1, a2 = rng.uniform(0.5, 2.0, n1), rng.uniform(0.5, 2.0, n2)
+    J1, J2 = rng.standard_normal((B, n1, 2)), rng.standard_normal((B, n2, 2))
+    return s1, a1, J1, s2, a2, J2
+
+
+@needs_pallas
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n1,n2", [(128, 128), (200, 150)])
+def test_biot_savart_pair_plain_matches_pallas_interpret(B, n1, n2):
+    args = [a.astype(np.float32) for a in _pair_inputs(B + n1, B, n1, n2)]
+    dz2 = np.float32(0.49)
+    ref2, ref1 = (
+        np.asarray(a)
+        for a in pallas_biot_savart_pair(*args, dz2, tm=TM, tn=TN, interpret=True)
+    )
+    at2, at1 = kernels.biot_savart_pair_plain(
+        *(_t(a, torch.float32) for a in args), float(dz2), block=64
+    )
+    assert at2.shape == (B, n2) and at1.shape == (B, n1)
+    # float32 sums of n terms in different orders: 1e-5 of the largest value.
+    assert np.abs(at2.numpy() - ref2).max() <= 1e-5 * np.abs(ref2).max()
+    assert np.abs(at1.numpy() - ref1).max() <= 1e-5 * np.abs(ref1).max()
+
+
+@pytest.mark.parametrize("squeeze", [False, True])
+def test_biot_savart_pair_coupling_matches_jax_two_passes(monkeypatch, squeeze):
+    s1, a1, J1, s2, a2, J2 = _pair_inputs(12, 2, 60, 45)
+    if squeeze:
+        J1, J2 = J1[0], J2[0]
+    ref = jkernels.biot_savart_pair_dz2(s1, a1, J1, s2, a2, J2, 0.5)
+    monkeypatch.setenv("SUPERSCREEN_TPU_PAIR_COUPLING", "1")
+    out = kernels.biot_savart_pair_dz2(_t(s1), _t(a1), _t(J1), _t(s2), _t(a2), _t(J2), 0.5)
+    for a, b in zip(out, ref):
+        assert a.shape == np.shape(b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-14)
