@@ -28,10 +28,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 6. Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1 (the
    biot_savart_pair kernel): streams within 1e-5 of phase 4's.
 
-Phase 1 also runs q_apply and biot_savart_pair against their plain
-versions on the 27,000-site films, and the pair kernel against two
-biot_savart_batch passes.  Each path's launch counters are set to 0 just
-before it runs and read just after.
+Phase 1 also runs q_apply, biot_savart_batch and biot_savart_pair against
+their plain versions on the 27,000-site films, the pair kernel against two
+biot_savart_batch passes, and two launches of each redesigned kernel
+(q_apply, biot_savart_batch) against each other, which must agree to the
+bit.  Phase 4 also times q_apply at the shape of the CG matvec (the
+interior sites of one film).  Every kernel time is printed beside its
+bound: the least time the card could take for the same work, from the
+bytes it must move and the operations it must do (H100_RATES).  Each
+path's launch counters are set to 0 just before it runs and read just
+after.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -61,6 +67,55 @@ PAIR_STREAM_REL_MAX = 1e-5
 SITES_DENSE = 20000
 SITES_LARGE = 27000
 ITERATIONS = 5
+
+# Peak rates of an H100 SXM at its 700 W limit (132 SMs at 1.98 GHz;
+# NVIDIA's data sheet): HBM bytes, FP32 and FP64 operations outside the
+# tensor cores (an FMA counts 2), and reciprocal square roots on the
+# special-function units (16 per clock per SM).
+H100_RATES = {"bytes": 3.35e12, "float32": 66.9e12, "float64": 33.5e12, "rsqrt": 4.18e12}
+
+
+def _flops_per_pair(kernel, cols):
+    """Floating-point operations per pair besides the reciprocal square
+    root: the differences, the squared distance and the cube, then per
+    column one FMA (q_apply), two (biot_savart_batch, K = (dx, dy) r^-3
+    formed once) or four (the pair kernel, both directions)."""
+    return {"q_matrix": 8, "q_apply": 7 + 2 * cols, "biot_savart_batch": 10 + 4 * cols,
+            "biot_savart_pair": 10 + 8 * cols}[kernel]
+
+
+def _bound(kernel, dtype, n_eval, n_src, cols):
+    """The least time in ms that the card could take for a launch, and what
+    sets it: each input read and each output written once over the HBM
+    rate, the pairs' reciprocal square roots over the special-function
+    rate, or their other operations over the FP32 (FP64) rate."""
+    name = str(dtype).split(".")[1]
+    size = 4 if name == "float32" else 8
+    pairs = n_eval * n_src
+    values = {  # inputs read + outputs written
+        "q_matrix": 2 * n_src + n_eval * n_src,
+        "q_apply": 2 * n_eval + (2 + cols) * n_src + n_eval * cols,
+        "biot_savart_batch": (3 + 2 * cols) * n_src + (2 + cols) * n_eval,
+        "biot_savart_pair": (3 + 3 * cols) * (n_src + n_eval),
+    }[kernel]
+    times = {
+        "bytes": values * size / H100_RATES["bytes"],
+        "rsqrt": pairs / H100_RATES["rsqrt"],
+        name: pairs * _flops_per_pair(kernel, cols) / H100_RATES[name],
+    }
+    what = max(times, key=times.get)
+    return times[what] * 1e3, what
+
+
+def _bound_text(bound, ms):
+    return f"bound_ms={bound[0]:.4f} ({bound[1]}) share_of_bound={bound[0] / ms:.3f}"
+
+
+def _row(abs_err, ms, plain_ms, bound):
+    """A kernel's entry of the summary line (no single PyTorch call computes
+    any of these functions, so there is no library time)."""
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by="bytes" if bound[1] == "bytes" else "operations", library_ms=None)
 
 
 def _require(condition, message="check failed"):
@@ -100,14 +155,15 @@ def phase_kernels(torch, kernels, cuda_kernels, device):
         name = str(dtype).split(".")[1]
         ms = _timed(torch, lambda: cuda_kernels.q_matrix(pts), 10)
         plain_ms = _timed(torch, lambda: kernels.q_matrix_plain(pts), 3)
+        bound = _bound("q_matrix", dtype, n, n, 0)
         print(
             f"phase1 q_matrix n={n} {name}: max_abs_err={abs_err:.3e} "
             f"rel_err={rel:.3e} (limit {TOL[name]:.0e}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}"
+            f"plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}"
         )
         _require(rel <= TOL[name], f"q_matrix {name} disagrees: {rel:.3e}")
         if dtype == torch.float32:
-            rows["q_matrix"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            rows["q_matrix"] = _row(abs_err, ms, plain_ms, bound)
         del out, ref
     torch.cuda.empty_cache()
     # Film 0 (z0 = 0) acting on film 1 (z0 = 0.5), as in a coupling round.
@@ -132,15 +188,16 @@ def phase_kernels(torch, kernels, cuda_kernels, device):
                 plain_ms = _timed(
                     torch, lambda: kernels.biot_savart_plain(src, areas, J, dst, dz2), 3
                 )
+                bound = _bound("biot_savart_batch", dtype, n2, n1, B)
                 print(
                     f"phase1 biot_savart_batch n1={n1} n2={n2} B={B} dz2={dz2} {name}: "
                     f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}"
                 )
                 _require(rel <= TOL[name], f"biot_savart_batch {name} disagrees: {rel:.3e}")
                 if dtype == torch.float32 and B == 1:
                     row = rows.setdefault(
-                        "biot_savart_batch", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+                        "biot_savart_batch", _row(0.0, ms, plain_ms, bound)
                     )
                     row["max_abs_err"] = max(row["max_abs_err"], abs_err)
     return rows
@@ -159,6 +216,15 @@ def _check_against_plain(torch, label, dtype, out, ref):
     name = str(dtype).split(".")[1]
     _require(rel <= TOL[name], f"{label} disagrees: {rel:.3e}")
     return abs_err, rel
+
+
+def _check_deterministic(torch, label, fn):
+    """Two launches on the same inputs must give the same bits (the splits
+    are added in a fixed order, without atomics)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    _require(torch.equal(first, second), f"{label}: two launches differ")
+    print(f"phase1 {label}: two launches are bitwise equal")
 
 
 def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
@@ -181,13 +247,16 @@ def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
                 )
                 ms = _timed(torch, lambda: cuda_kernels.q_apply(ev, sites, V), 10)
                 plain_ms = _timed(torch, lambda: kernels.q_apply_plain(ev, sites, V), 3)
+                bound = _bound("q_apply", dtype, ev.shape[0], n, k)
                 print(
                     f"phase1 q_apply {shape} m={ev.shape[0]} n={n} k={k} {name}: "
                     f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}"
                 )
                 if dtype == torch.float32 and shape == "square" and k == 1:
-                    rows["q_apply"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                    rows["q_apply"] = _row(abs_err, ms, plain_ms, bound)
+                if shape == "square" and k == 7:
+                    _check_deterministic(torch, f"q_apply {name}", lambda: cuda_kernels.q_apply(ev, sites, V))
     torch.cuda.empty_cache()
     # Film 0 (z0 = 0) and film 1 (z0 = 0.5), as in a coupling round.
     n1, n2 = len(meshes[0].sites), len(meshes[1].sites)
@@ -201,6 +270,25 @@ def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
         a1, a2 = t(meshes[0].vertex_areas), t(meshes[1].vertex_areas)
         for B in (1, 8):
             J1, J2 = t(rng.standard_normal((B, n1, 2))), t(rng.standard_normal((B, n2, 2)))
+            # One pass of the low-memory coupling: film 0 acting on film 1.
+            abs_err, rel = _check_against_plain(
+                torch, f"biot_savart_batch B={B} {name}", dtype,
+                cuda_kernels.biot_savart_batch(s1, a1, J1, s2, 0.25),
+                kernels.biot_savart_plain(s1, a1, J1, s2, 0.25),
+            )
+            ms = _timed(torch, lambda: cuda_kernels.biot_savart_batch(s1, a1, J1, s2, 0.25), 10)
+            plain_ms = _timed(torch, lambda: kernels.biot_savart_plain(s1, a1, J1, s2, 0.25), 3)
+            bound = _bound("biot_savart_batch", dtype, n2, n1, B)
+            print(
+                f"phase1 biot_savart_batch n1={n1} n2={n2} B={B} dz2=0.25 {name}: "
+                f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}"
+            )
+            if B == 8:
+                _check_deterministic(
+                    torch, f"biot_savart_batch {name}",
+                    lambda: cuda_kernels.biot_savart_batch(s1, a1, J1, s2, 0.25),
+                )
             args = (s1, a1, J1, s2, a2, J2, 0.25)
             abs_err, rel = _check_against_plain(
                 torch, f"biot_savart_pair B={B} {name}", dtype,
@@ -214,13 +302,15 @@ def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
             ms = _timed(torch, lambda: cuda_kernels.biot_savart_pair(*args), 10)
             two_ms = _timed(torch, two_passes, 10)
             plain_ms = _timed(torch, lambda: kernels.biot_savart_pair_plain(*args), 3)
+            bound = _bound("biot_savart_pair", dtype, n2, n1, B)
             print(
                 f"phase1 biot_savart_pair n1={n1} n2={n2} B={B} dz2=0.25 {name}: "
                 f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
-                f"kernel_ms={ms:.4f} two_batch_passes_ms={two_ms:.4f} plain_ms={plain_ms:.4f}"
+                f"kernel_ms={ms:.4f} two_batch_passes_ms={two_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"{_bound_text(bound, ms)}"
             )
             if dtype == torch.float32 and B == 1:
-                rows["biot_savart_pair"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                rows["biot_savart_pair"] = _row(abs_err, ms, plain_ms, bound)
     torch.cuda.empty_cache()
     return rows
 
@@ -345,6 +435,32 @@ def _check_residuals(torch, model, solution, label, limit=RESIDUAL_MAX):
         _require(np.isfinite(res) and (limit is None or res <= limit), f"{name} residual {res:.3e}")
 
 
+def _profile_solve(torch, st, model, label):
+    """A warm ``solve`` of ``model`` under torch.profiler: prints its wall
+    time (profiled), the device time (the kernels' summed self time), the
+    device's idle share of the wall, and the kernels that take the most
+    device time, with their launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _solve(torch, st, model)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _solve(torch, st, model)
+    events = [
+        e for e in prof.key_averages()
+        if getattr(e, "device_type", None) is not None and e.device_type.name == "CUDA"
+    ]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(
+        f"{label}: wall_ms={wall * 1e3:.1f} (profiled) device_ms={device_ms:.1f} "
+        f"idle_share={1 - device_ms / (wall * 1e3):.3f}"
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(
+            f"{label}   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"({e.self_device_time_total / 1e3 / device_ms:6.1%}) x{e.count:<6d} {e.key[:90]}"
+        )
+
+
 def _stream_error(solutions, reference):
     """Largest relative stream difference over the films of the last round."""
     worst = 0.0
@@ -394,6 +510,8 @@ def phase_lowmem(torch, st, cuda_kernels, device):
     _require(launches["q_matrix"] >= len(device.films), launches)
     _require(launches["biot_savart_batch"] >= 12 * ITERATIONS, launches)
     _check_residuals(torch, model, solutions[-1], "phase4")
+    _time_cg_matvec_shape(torch, model)
+    _profile_solve(torch, st, model, "phase4 profile of the warm LU solve")
     # The peak of one film's factorization, for the materialized ceiling:
     # A, the -A handed to lu_factor, the packed LU and the solver's
     # workspace, per ni^2.
@@ -412,6 +530,30 @@ def phase_lowmem(torch, st, cuda_kernels, device):
         f"{peak / ni**2:.3f} bytes per ni^2 ({A.dtype})"
     )
     return model, solutions, launches
+
+
+def _time_cg_matvec_shape(torch, model):
+    """q_apply at the shape of the CG matvec: the interior sites of the
+    first film (the q-block that brandt_matvec applies), k = 1."""
+    from superscreen_tpu_torch.ops import cuda_kernels, kernels
+
+    name = next(iter(model.device.films))
+    sites = model.device.meshes[name].sites[model.film_systems[name].indices]
+    sub = torch.as_tensor(sites, dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal((len(sites), 1)),
+                        dtype=torch.float32, device="cuda")
+    abs_err, rel = _check_against_plain(
+        torch, "q_apply CG matvec", torch.float32,
+        cuda_kernels.q_apply(sub, sub, x), kernels.q_apply_plain(sub, sub, x),
+    )
+    ms = _timed(torch, lambda: cuda_kernels.q_apply(sub, sub, x), 20)
+    plain_ms = _timed(torch, lambda: kernels.q_apply_plain(sub, sub, x), 3)
+    bound = _bound("q_apply", torch.float32, len(sites), len(sites), 1)
+    print(
+        f"phase4 q_apply CG-matvec shape m=n={len(sites)} k=1 float32: "
+        f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL['float32']:.0e}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}"
+    )
 
 
 def phase_pair(torch, st, cuda_kernels, model, two_pass):
@@ -468,6 +610,7 @@ def phase_cg(torch, st, cuda_kernels, device, lu_solutions):
     err = _stream_error(solutions, lu_solutions)
     print(f"phase5 max relative stream difference to LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})")
     _require(err <= CG_STREAM_REL_MAX, f"CG stream difference {err:.3e}")
+    _profile_solve(torch, st, model, "phase5 profile of the warm CG solve")
 
 
 def phase_accuracy(st):

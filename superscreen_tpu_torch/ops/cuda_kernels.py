@@ -10,10 +10,14 @@ is compiled or loaded when this module is imported.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch failed.  ``LAUNCHES`` counts the launches of each
-kernel.
+kernel.  The pairwise kernels split their source range over blocks; the
+grid arithmetic is done here, from the block geometry each kernel's
+library reports (``sstt_<kernel>_geometry``), so the two sides cannot
+drift.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,8 +51,16 @@ _NVCC_FLAGS = (
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _SUPPORTED = (torch.float32, torch.float64)
 
+# Blocks per SM that the split of a pairwise kernel's source range aims
+# for: at least _MIN_BLOCKS_PER_SM (16 warps of 128-thread blocks, enough
+# to hide the rsqrt and FMA latencies) where the problem has that much
+# work, and at most _MAX_BLOCKS_PER_SM, which bounds the partial sums.
+_MIN_BLOCKS_PER_SM = 4
+_MAX_BLOCKS_PER_SM = 8
+
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+_geometries: dict = {}
 
 
 def _nvcc() -> str:
@@ -117,6 +129,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, scalar, i64, i64, i64, i64, i64,
                        ptr, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+    for kernel in ("q_apply", "biot_savart", "biot_savart_pair"):
+        fn = getattr(lib, f"sstt_{kernel}_geometry")
+        fn.argtypes = [ctypes.c_int, i64, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+        fn.restype = None
     return lib
 
 
@@ -186,12 +202,69 @@ def q_matrix(points: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _source_splits(n1: int, eval_blocks: int, device: torch.device) -> int:
-    """Source-range splits (of ``n1`` sources) so that a grid of
-    ``eval_blocks`` evaluation blocks has about four blocks per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-n1 // 128)
-    return max(1, min(tiles, -(-4 * sms // eval_blocks), 65535))
+def _geometry(kernel: str, dtype: torch.dtype, cols: int) -> tuple:
+    """``(evaluation points per block, source points per tile)`` of the
+    pairwise kernel ``kernel`` (``q_apply``, ``biot_savart`` or
+    ``biot_savart_pair``) in ``dtype`` for ``cols`` columns (``k`` or
+    ``B``), as its library reports them."""
+    key = (kernel, dtype, cols)
+    if key not in _geometries:
+        points, tile = ctypes.c_int64(), ctypes.c_int64()
+        getattr(load_library(), f"sstt_{kernel}_geometry")(
+            int(dtype == torch.float64), cols, ctypes.byref(points), ctypes.byref(tile)
+        )
+        _geometries[key] = (points.value, tile.value)
+    return _geometries[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _source_splits(n_src: int, tile: int, eval_blocks: int, sms: int) -> int:
+    """Splits of a source range of ``n_src`` points, whole tiles of
+    ``tile`` points each (as ``split_length`` in ``csrc/common.cuh`` cuts
+    them), for a grid of ``eval_blocks`` evaluation blocks on ``sms`` SMs.
+
+    Among the splits that put between ``_MIN_BLOCKS_PER_SM`` and
+    ``_MAX_BLOCKS_PER_SM`` blocks on each SM (fewer where the problem is
+    smaller, one split where the evaluation blocks alone exceed that), it
+    takes the one whose busiest SM, holding ``ceil(blocks / sms)`` blocks,
+    works through the fewest source tiles, and the fewest splits among
+    equals.  No split is empty.
+    """
+    tiles = -(-n_src // tile)
+    most = max(eval_blocks, _MAX_BLOCKS_PER_SM * sms)
+    least = min(_MIN_BLOCKS_PER_SM * sms, eval_blocks * tiles, most)
+    best_cost, best = None, 1
+    for splits in range(1, min(tiles, 65535, most // eval_blocks) + 1):
+        length = -(-tiles // splits)  # tiles per split, as split_length cuts them
+        blocks = eval_blocks * splits
+        if blocks < least or (splits - 1) * length >= tiles:  # an empty last split
+            continue
+        cost = -(-blocks // sms) * length
+        if best_cost is None or cost < best_cost:
+            best_cost, best = cost, splits
+    return best
+
+
+def _partial_shapes(kernel: str, dtype: torch.dtype, n_eval: int, n_src: int, cols: int,
+                    sms: int) -> list:
+    """Shapes of the partial sums a launch of ``kernel`` writes, as the C
+    side indexes them: ``q_apply`` ``(splits, m, k)``; ``biot_savart``
+    ``(splits, B, n2)``; ``biot_savart_pair`` that and the reverse sums
+    ``(eval_blocks, B, n1)``.  The first dimension is what the launch is
+    given as ``splits`` (and ``eval_blocks``)."""
+    points, tile = _geometry(kernel, dtype, cols)
+    eval_blocks = -(-n_eval // points)
+    splits = _source_splits(n_src, tile, eval_blocks, sms)
+    if kernel == "q_apply":
+        return [(splits, n_eval, cols)]
+    shapes = [(splits, cols, n_eval)]
+    if kernel == "biot_savart_pair":
+        shapes.append((eval_blocks, cols, n_src))
+    return shapes
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def biot_savart_batch(
@@ -216,8 +289,9 @@ def biot_savart_batch(
     _check("J", J, dtype, (B, n1, 2))
     _check("dst_sites", dst_sites, dtype, (n2, 2))
     _same_device("src_sites", src_sites, src_areas=src_areas, J=J, dst_sites=dst_sites)
-    splits = _source_splits(n1, -(-n2 // 128), src_sites.device)
-    partial = torch.empty((splits, B, n2), dtype=dtype, device=src_sites.device)
+    (shape,) = _partial_shapes("biot_savart", dtype, n2, n1, B, _sm_count(src_sites.device))
+    splits = shape[0]
+    partial = torch.empty(shape, dtype=dtype, device=src_sites.device)
     out = torch.empty((B, n2), dtype=dtype, device=src_sites.device)
     with torch.cuda.device(src_sites.device):
         lib = load_library()
@@ -249,8 +323,9 @@ def q_apply(eval_sites: torch.Tensor, src_sites: torch.Tensor, V: torch.Tensor) 
     _same_device("eval_sites", eval_sites, src_sites=src_sites, V=V)
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, k), dtype=dtype, device=eval_sites.device)
-    splits = _source_splits(n, -(-m // 128), eval_sites.device)
-    partial = torch.empty((splits, m, k), dtype=dtype, device=eval_sites.device)
+    (shape,) = _partial_shapes("q_apply", dtype, m, n, k, _sm_count(eval_sites.device))
+    splits = shape[0]
+    partial = torch.empty(shape, dtype=dtype, device=eval_sites.device)
     out = torch.empty((m, k), dtype=dtype, device=eval_sites.device)
     with torch.cuda.device(eval_sites.device):
         lib = load_library()
@@ -290,11 +365,12 @@ def biot_savart_pair(
     _check("areas2", areas2, dtype, (n2,))
     _check("J2", J2, dtype, (B, n2, 2))
     _same_device("sites1", sites1, areas1=areas1, J1=J1, sites2=sites2, areas2=areas2, J2=J2)
-    # Film-2 points per block of the kernel (BP_POINTS in biot_savart_pair.cu).
-    eval_blocks = -(-n2 // 512)
-    splits = _source_splits(n1, eval_blocks, sites1.device)
-    fwd_partial = torch.empty((splits, B, n2), dtype=dtype, device=sites1.device)
-    rev_partial = torch.empty((eval_blocks, B, n1), dtype=dtype, device=sites1.device)
+    fwd_shape, rev_shape = _partial_shapes(
+        "biot_savart_pair", dtype, n2, n1, B, _sm_count(sites1.device)
+    )
+    splits, eval_blocks = fwd_shape[0], rev_shape[0]
+    fwd_partial = torch.empty(fwd_shape, dtype=dtype, device=sites1.device)
+    rev_partial = torch.empty(rev_shape, dtype=dtype, device=sites1.device)
     out2 = torch.empty((B, n2), dtype=dtype, device=sites1.device)
     out1 = torch.empty((B, n1), dtype=dtype, device=sites1.device)
     with torch.cuda.device(sites1.device):

@@ -45,8 +45,12 @@ def test_q_matrix_kernel_matches_plain(cuda, dtype, n):
         assert _rel_err(out, ref) <= TOL[dtype]
 
 
+# Batch and column counts on both sides of each chunk width (1, 2, 4, 8).
+CHUNK_EDGES = [1, 2, 3, 4, 5, 7, 8, 9, 16, 17]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B", [1, 2, 3, 8, 9])
+@pytest.mark.parametrize("B", CHUNK_EDGES)
 def test_biot_savart_kernel_matches_plain(cuda, dtype, B):
     rng = np.random.default_rng(B)
     n1, n2 = 3001, 1777
@@ -64,7 +68,9 @@ def test_biot_savart_kernel_matches_plain(cuda, dtype, B):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize(
-    "m,n,k", [(1, 2, 1), (1777, 1777, 1), (3001, 1777, 7), (500, 4099, 2), (1000, 1000, 11)]
+    "m,n,k",
+    [(1, 2, 1), (1777, 1777, 1), (3001, 1777, 7), (500, 4099, 2), (1000, 1000, 11)]
+    + [(700, 643, k) for k in CHUNK_EDGES],
 )
 def test_q_apply_kernel_matches_plain(cuda, dtype, m, n, k):
     rng = np.random.default_rng(m + n + k)
@@ -100,6 +106,100 @@ def test_biot_savart_pair_kernel_matches_plain(cuda, dtype, B):
         assert _rel_err(at1, ref1) <= TOL[dtype]
         # The same fields as two one-way passes of biot_savart_batch.
         assert _rel_err(at1, cuda_kernels.biot_savart_batch(s2, a2, J2, s1, dz2)) <= TOL[dtype]
+
+
+# Evaluation counts around the block of threads x points per thread (128
+# threads; 4 points each in float32, 2 in float64) and source counts around
+# the 128-point tile and the unrolled step of 4 (float32) or 2 (float64).
+BLOCK_EDGES = [(1, 1), (1, 131), (127, 128), (255, 257), (257, 383), (511, 130), (513, 129),
+               (1025, 385), (2049, 131)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", BLOCK_EDGES)
+def test_q_apply_kernel_ragged_blocks_and_tiles(cuda, dtype, m, n):
+    rng = np.random.default_rng(7 * m + n)
+    src = torch.as_tensor(rng.uniform(-5, 5, (n, 2)), dtype=dtype, device=cuda)
+    ev = torch.as_tensor(rng.uniform(-4, 4, (m, 2)), dtype=dtype, device=cuda)
+    for k in (1, 3):
+        V = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype, device=cuda)
+        out = cuda_kernels.q_apply(ev, src, V)
+        ref = kernels.q_apply_plain(ev, src, V)
+        torch.cuda.synchronize()
+        assert out.shape == (m, k) and bool(torch.isfinite(out).all())
+        assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", BLOCK_EDGES)
+def test_biot_savart_kernel_ragged_blocks_and_tiles(cuda, dtype, m, n):
+    rng = np.random.default_rng(3 * m + n)
+    src = torch.as_tensor(rng.uniform(-5, 5, (n, 2)), dtype=dtype, device=cuda)
+    dst = torch.as_tensor(rng.uniform(-4, 4, (m, 2)), dtype=dtype, device=cuda)
+    areas = torch.as_tensor(rng.uniform(0.01, 0.02, n), dtype=dtype, device=cuda)
+    for B in (1, 3):
+        J = torch.as_tensor(rng.standard_normal((B, n, 2)), dtype=dtype, device=cuda)
+        out = cuda_kernels.biot_savart_batch(src, areas, J, dst, 0.25)
+        ref = kernels.biot_savart_plain(src, areas, J, dst, 0.25)
+        torch.cuda.synchronize()
+        assert out.shape == (B, m) and bool(torch.isfinite(out).all())
+        assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_q_apply_coincident_points_within_and_across_blocks(cuda, dtype):
+    # Evaluation points 0, 128, 256 and 384 are the four points of thread 0
+    # of block 0 in float32 (0 and 128 in float64); 600 and 1500 lie in
+    # other blocks.  Each coincides with a source, some with two (a
+    # duplicated source), in the full tiles and in the ragged last tile.
+    rng = np.random.default_rng(5)
+    n, m = 1333, 2000
+    src = rng.uniform(-5, 5, (n, 2))
+    src[1332] = src[7]  # a duplicate in the ragged last tile
+    ev = rng.uniform(-4, 4, (m, 2))
+    for i, j in ((0, 7), (128, 1331), (256, 200), (384, 201), (600, 7), (1500, 1300)):
+        ev[i] = src[j]
+    src_t = torch.as_tensor(src, dtype=dtype, device=cuda)
+    ev_t = torch.as_tensor(ev, dtype=dtype, device=cuda)
+    V = torch.as_tensor(rng.standard_normal((n, 2)), dtype=dtype, device=cuda)
+    out = cuda_kernels.q_apply(ev_t, src_t, V)
+    ref = kernels.q_apply_plain(ev_t, src_t, V)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _rel_err(out, ref) <= TOL[dtype]
+    # A source that coincides with the evaluation point contributes exactly
+    # zero: V nonzero only at the coincident source gives a zero row.
+    one_hot = torch.zeros((n, 1), dtype=dtype, device=cuda)
+    one_hot[1300, 0] = 1.0
+    assert float(cuda_kernels.q_apply(ev_t, src_t, one_hot)[1500, 0]) == 0.0
+
+
+def _deterministic(fn):
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    return all(torch.equal(a, b) for a, b in zip(firsts, seconds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_are_deterministic(cuda, dtype):
+    # Fixed-order sums, no atomics: two launches give the same bits.
+    rng = np.random.default_rng(9)
+    n1, n2 = 3001, 2777
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    s1, s2 = t(rng.uniform(-5, 5, (n1, 2))), t(rng.uniform(-4, 4, (n2, 2)))
+    a1, a2 = t(rng.uniform(0.01, 0.02, n1)), t(rng.uniform(0.01, 0.02, n2))
+    J1, J2 = t(rng.standard_normal((3, n1, 2))), t(rng.standard_normal((3, n2, 2)))
+    V = t(rng.standard_normal((n1, 7)))
+    assert _deterministic(lambda: cuda_kernels.q_matrix(s2))
+    assert _deterministic(lambda: cuda_kernels.biot_savart_batch(s1, a1, J1, s2, 0.25))
+    assert _deterministic(lambda: cuda_kernels.q_apply(s2, s1, V))
+    assert _deterministic(lambda: cuda_kernels.biot_savart_pair(s1, a1, J1, s2, a2, J2, 0.25))
 
 
 def test_biot_savart_pair_same_height_is_finite(cuda):

@@ -282,3 +282,98 @@ def test_biot_savart_pair_coupling_matches_jax_two_passes(monkeypatch, squeeze):
     for a, b in zip(out, ref):
         assert a.shape == np.shape(b)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-14)
+
+
+# The launch geometry of the pairwise CUDA kernels, computed on the host:
+# the library's block geometry is replaced by a stub with the values the C
+# sources set (evaluation points per block, source points per tile).
+H100_SMS = 132
+
+
+def _stub_geometry(kernel, dtype, cols):
+    if kernel == "biot_savart_pair":
+        return 512, 64
+    # 128 threads; 4 points each in float32 (8 in biot_savart's chunk of 8
+    # batch columns, used from 5 columns on), 2 in float64.
+    if dtype == torch.float64:
+        return 256, 128
+    return (1024 if kernel == "biot_savart" and cols > 4 else 512), 128
+
+
+def _split_ranges(n_src, tile, splits):
+    """The source range of each split, as csrc/common.cuh split_length and
+    the kernels' j_begin / j_end cut it."""
+    tiles = -(-n_src // tile)
+    length = -(-tiles // splits) * tile
+    return [(s * length, min((s + 1) * length, n_src)) for s in range(splits)]
+
+
+def _check_partition(n_src, tile, splits):
+    assert 1 <= splits <= min(-(-n_src // tile), 65535)
+    ranges = _split_ranges(n_src, tile, splits)
+    # Every split is non-empty and starts on a tile, and every source tile
+    # belongs to exactly one split.
+    assert all(lo < hi and lo % tile == 0 for lo, hi in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_src
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize(
+    "kernel,dtype,n_eval,n_src,cols",
+    [
+        ("q_apply", torch.float32, 16770, 16770, 1),  # the CG matvec
+        ("q_apply", torch.float32, 27298, 27298, 1),  # low-memory row sums
+        ("q_apply", torch.float32, 27298, 27298, 7),  # matrix-free self-field
+        ("q_apply", torch.float32, 9099, 27298, 2),  # hole vectors
+        ("q_apply", torch.float64, 27298, 27298, 1),
+        ("biot_savart", torch.float32, 27298, 27298, 1),  # low-memory coupling
+        ("biot_savart", torch.float32, 27298, 27298, 8),
+        ("biot_savart", torch.float32, 20274, 20274, 1),  # dense coupling
+        ("biot_savart", torch.float64, 27298, 27298, 8),
+        ("biot_savart_pair", torch.float32, 27298, 27298, 1),
+        ("biot_savart_pair", torch.float64, 27298, 27298, 8),
+    ],
+)
+def test_launch_geometry_of_main_path_shapes(monkeypatch, kernel, dtype, n_eval, n_src, cols):
+    monkeypatch.setattr(cuda_kernels, "_geometry", _stub_geometry)
+    points, tile = _stub_geometry(kernel, dtype, cols)
+    shapes = cuda_kernels._partial_shapes(kernel, dtype, n_eval, n_src, cols, H100_SMS)
+    splits = shapes[0][0]
+    eval_blocks = -(-n_eval // points)
+    _check_partition(n_src, tile, splits)
+    # At these shapes the grid holds 4 to 8 blocks of 4 warps per SM.
+    blocks = eval_blocks * splits
+    assert 4 * H100_SMS <= blocks <= 8 * H100_SMS
+    # The partial sums the C side indexes: q_apply partial[(s m + i) k + c],
+    # biot_savart partial[(s B + b) n2 + i], and the pair kernel's reverse
+    # sums rev[(blockIdx.x B + b) n1 + j].
+    if kernel == "q_apply":
+        assert shapes == [(splits, n_eval, cols)]
+    elif kernel == "biot_savart":
+        assert shapes == [(splits, cols, n_eval)]
+    else:
+        assert shapes == [(splits, cols, n_eval), (eval_blocks, cols, n_src)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_source_splits_partition_any_shape(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(150):
+        tile = int(rng.choice([64, 128]))
+        n_src = int(rng.integers(1, 300_000))
+        eval_blocks = int(rng.integers(1, 3000))
+        sms = int(rng.choice([1, 8, 78, 114, 132]))
+        splits = cuda_kernels._source_splits(n_src, tile, eval_blocks, sms)
+        _check_partition(n_src, tile, splits)
+        blocks = eval_blocks * splits
+        tiles = -(-n_src // tile)
+        assert blocks <= max(eval_blocks, 8 * sms)
+        assert blocks >= min(4 * sms, eval_blocks * tiles) or splits == 1
+
+
+def test_partial_shapes_follow_the_library_geometry(monkeypatch):
+    # Twice the points per block halves the evaluation blocks, which size
+    # the pair kernel's reverse partial sums.
+    monkeypatch.setattr(cuda_kernels, "_geometry", lambda k, d, c: (1024, 64))
+    shapes = cuda_kernels._partial_shapes("biot_savart_pair", torch.float32, 27298, 27298, 2, 132)
+    assert shapes[1] == (27, 2, 27298)
