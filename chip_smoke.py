@@ -26,13 +26,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    streams within 1e-4 of phase 4's; CG iterations and the final
    residuals are printed.
 6. Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1 (the
-   biot_savart_pair kernel): streams within 1e-5 of phase 4's.
+   biot_savart_pair kernel): streams within 1e-5 of phase 4's; warm solves
+   with and without the pair kernel timed in turns, and the pair-coupled
+   solve profiled.
 
 Phase 1 also runs q_apply, biot_savart_batch and biot_savart_pair against
 their plain versions on the 27,000-site films, the pair kernel against two
-biot_savart_batch passes, and two launches of each redesigned kernel
-(q_apply, biot_savart_batch) against each other, which must agree to the
-bit.  Phase 4 also times q_apply at the shape of the CG matvec (the
+biot_savart_batch passes (its time and its ratio to theirs), and two
+launches of each register-blocked kernel (q_apply, biot_savart_batch,
+biot_savart_pair) against each other, which must agree to the bit.  Phase 4 also times q_apply at the shape of the CG matvec (the
 interior sites of one film).  Every kernel time is printed beside its
 bound: the least time the card could take for the same work, from the
 bytes it must move and the operations it must do (H100_RATES).  Each
@@ -43,6 +45,7 @@ The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -220,10 +223,12 @@ def _check_against_plain(torch, label, dtype, out, ref):
 
 def _check_deterministic(torch, label, fn):
     """Two launches on the same inputs must give the same bits (the splits
-    are added in a fixed order, without atomics)."""
+    are added in a fixed order, without atomics); ``fn`` returns a tensor or
+    a tuple of tensors."""
     first, second = fn(), fn()
     torch.cuda.synchronize()
-    _require(torch.equal(first, second), f"{label}: two launches differ")
+    firsts, seconds = (first, second) if isinstance(first, tuple) else ((first,), (second,))
+    _require(all(torch.equal(a, b) for a, b in zip(firsts, seconds)), f"{label}: two launches differ")
     print(f"phase1 {label}: two launches are bitwise equal")
 
 
@@ -306,8 +311,12 @@ def phase_lowmem_kernels(torch, kernels, cuda_kernels, device):
             print(
                 f"phase1 biot_savart_pair n1={n1} n2={n2} B={B} dz2=0.25 {name}: "
                 f"max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e}) "
-                f"kernel_ms={ms:.4f} two_batch_passes_ms={two_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"kernel_ms={ms:.4f} two_batch_passes_ms={two_ms:.4f} "
+                f"pair_to_two_passes={ms / two_ms:.3f} plain_ms={plain_ms:.4f} "
                 f"{_bound_text(bound, ms)}"
+            )
+            _check_deterministic(
+                torch, f"biot_savart_pair B={B} {name}", lambda: cuda_kernels.biot_savart_pair(*args)
             )
             if dtype == torch.float32 and B == 1:
                 rows["biot_savart_pair"] = _row(abs_err, ms, plain_ms, bound)
@@ -556,28 +565,47 @@ def _time_cg_matvec_shape(torch, model):
     )
 
 
-def phase_pair(torch, st, cuda_kernels, model, two_pass):
-    """Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1;
-    returns the launch counts."""
-    _, t_two = _solve(torch, st, model)
+@contextlib.contextmanager
+def _pair_coupling(on):
+    """SUPERSCREEN_TPU_PAIR_COUPLING=1 inside the block when ``on``."""
+    if not on:
+        yield
+        return
     os.environ["SUPERSCREEN_TPU_PAIR_COUPLING"] = "1"
     try:
-        _reset_launches(cuda_kernels)
-        solutions, t_pair = _solve(torch, st, model)
-        launches = dict(cuda_kernels.LAUNCHES)
+        yield
     finally:
         del os.environ["SUPERSCREEN_TPU_PAIR_COUPLING"]
+
+
+def phase_pair(torch, st, cuda_kernels, model, two_pass):
+    """Phase 4's model solved again with SUPERSCREEN_TPU_PAIR_COUPLING=1,
+    then warm solves with and without it timed in turns (two passes, pair,
+    pair, two passes, twice) and a profile of the pair-coupled solve;
+    returns the launch counts of one pair-coupled solve."""
+    with _pair_coupling(True):
+        _reset_launches(cuda_kernels)
+        solutions, _ = _solve(torch, st, model)
+        launches = dict(cuda_kernels.LAUNCHES)
     n_films = len(model.device.films)
     pairs = n_films * (n_films - 1) // 2
     err = _stream_error(solutions, two_pass)
+    times = {False: [], True: []}
+    for pair in (False, True, True, False) * 2:
+        with _pair_coupling(pair):
+            times[pair].append(_solve(torch, st, model)[1])
+    two_s, pair_s = (sum(times[k]) / len(times[k]) for k in (False, True))
     print(
-        f"phase6 solve_s: two passes {t_two:.3f}, pair {t_pair:.3f} (warm, "
-        f"iterations={ITERATIONS}); launches {launches}; max relative stream "
+        f"phase6 warm solve_s in turns (iterations={ITERATIONS}): two passes {two_s:.4f} "
+        f"{[round(t, 4) for t in times[False]]}, pair {pair_s:.4f} "
+        f"{[round(t, 4) for t in times[True]]}; launches {launches}; max relative stream "
         f"difference {err:.3e} (limit {PAIR_STREAM_REL_MAX:.0e})"
     )
     _require(launches["biot_savart_pair"] >= pairs * ITERATIONS, launches)
     _require(launches["biot_savart_batch"] == 0, launches)
     _require(err <= PAIR_STREAM_REL_MAX, f"pair stream difference {err:.3e}")
+    with _pair_coupling(True):
+        _profile_solve(torch, st, model, "phase6 profile of the warm pair-coupled solve")
     return launches
 
 

@@ -146,6 +146,43 @@ def test_biot_savart_kernel_ragged_blocks_and_tiles(cuda, dtype, m, n):
         assert _rel_err(out, ref) <= TOL[dtype]
 
 
+# Film-1 and film-2 counts around the pair kernel's 32-source group, its
+# source tile (64 in float32 for chunks of 1-2 columns, 128 for 4-8; 128 in
+# float64, 64 for chunks of 8) and its film-2 points per block (128 threads
+# x 8 points in float32 for chunks of 1-2 columns, x 4 for 4-8; x 2 in
+# float64).
+PAIR_EDGES = [(1, 1), (31, 255), (33, 257), (63, 511), (65, 513), (127, 1023), (129, 1025),
+              (255, 2047), (257, 2049), (1025, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n1,n2", PAIR_EDGES)
+def test_biot_savart_pair_kernel_ragged_blocks_and_groups(cuda, dtype, n1, n2):
+    rng = np.random.default_rng(5 * n1 + n2)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    s1, a1 = t(rng.uniform(-5, 5, (n1, 2))), t(rng.uniform(0.01, 0.02, n1))
+    a2 = t(rng.uniform(0.01, 0.02, n2))
+    for dz2 in (0.0, 0.25):
+        # At dz2 = 0 the films lie apart, so every real pair has r > 0 and
+        # any padded pair at r = 0 would show as a non-finite output.
+        s2 = t(rng.uniform(-4, 4, (n2, 2)) + (12.0 if dz2 == 0 else 0.0))
+        for B in (1, 2, 3, 5, 8, 9):
+            J1, J2 = t(rng.standard_normal((B, n1, 2))), t(rng.standard_normal((B, n2, 2)))
+            at2, at1 = cuda_kernels.biot_savart_pair(s1, a1, J1, s2, a2, J2, dz2)
+            ref2, ref1 = kernels.biot_savart_pair_plain(s1, a1, J1, s2, a2, J2, dz2)
+            two2 = cuda_kernels.biot_savart_batch(s1, a1, J1, s2, dz2)
+            two1 = cuda_kernels.biot_savart_batch(s2, a2, J2, s1, dz2)
+            torch.cuda.synchronize()
+            assert at2.shape == (B, n2) and at1.shape == (B, n1)
+            assert bool(torch.isfinite(at2).all()) and bool(torch.isfinite(at1).all())
+            for out, ref, two in ((at2, ref2, two2), (at1, ref1, two1)):
+                assert _rel_err(out, ref) <= TOL[dtype]
+                assert _rel_err(out, two) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_q_apply_coincident_points_within_and_across_blocks(cuda, dtype):
     # Evaluation points 0, 128, 256 and 384 are the four points of thread 0

@@ -292,7 +292,12 @@ H100_SMS = 132
 
 def _stub_geometry(kernel, dtype, cols):
     if kernel == "biot_savart_pair":
-        return 512, 64
+        # 128 threads; 8 film-2 points each in float32 for chunks of 1-2
+        # columns (tiles of 64 sources), 4 for 4-8 (tiles of 128); 2 in
+        # float64 (tiles of 128, 64 for the 8-column chunk).
+        if dtype == torch.float64:
+            return 256, (64 if cols > 4 else 128)
+        return (1024, 64) if cols <= 2 else (512, 128)
     # 128 threads; 4 points each in float32 (8 in biot_savart's chunk of 8
     # batch columns, used from 5 columns on), 2 in float64.
     if dtype == torch.float64:
