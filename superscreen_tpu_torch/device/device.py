@@ -1,9 +1,8 @@
 """Device: a stack of layers, films and holes.
 
-Counterpart of ``superscreen_tpu/device/device.py`` for the dense solve:
-layers, films, holes and abstract regions, meshing, boundary vertices and
-the solve dtype.  Transport terminals are not supported yet, and the
-device has no file I/O.
+Counterpart of ``superscreen_tpu/device/device.py``: layers, films, holes,
+transport terminals and abstract regions, meshing, boundary vertices and
+the solve dtype.  The device has no file I/O.
 """
 
 import logging
@@ -41,6 +40,21 @@ def _broadcast_per_film(value, film_names):
     return dict.fromkeys(film_names, value)
 
 
+def _unwrap_terminals(
+    cycle: np.ndarray, sites: np.ndarray, terminals: Sequence[Polygon]
+) -> np.ndarray:
+    """Rolls a CCW boundary cycle so that no terminal straddles its
+    start/end: a terminal spanning the wrap point shows up as a break in
+    its sorted boundary positions, and rolling by the length of the
+    leading run makes it contiguous."""
+    for terminal in terminals:
+        positions = terminal.contains_points(sites[cycle], index=True)
+        breaks = np.nonzero(np.diff(positions) != 1)[0]
+        if len(breaks):
+            return np.roll(cycle, -(breaks[0] + 1))
+    return cycle
+
+
 class Device:
     """A device composed of one or more layers of thin-film superconductor.
 
@@ -49,7 +63,7 @@ class Device:
         layers: The :class:`Layer` objects making up the device.
         films: :class:`Polygon` regions of superconductor.
         holes: :class:`Polygon` holes in superconducting films.
-        terminals: Transport terminals (not supported yet; must be empty).
+        terminals: ``{film_name: [terminal, ...]}`` transport terminals.
         abstract_regions: Abstract :class:`Polygon` regions.
         length_units: Distance units for the coordinate system.
         solve_dtype: Float dtype used when solving the device.
@@ -69,19 +83,24 @@ class Device:
         length_units: str = "um",
         solve_dtype: Union[str, np.dtype] = "float32",
     ):
-        if terminals:
-            raise NotImplementedError(
-                "Transport terminals are not supported by superscreen_tpu_torch yet."
-            )
         self.name = name
         self.layers = _by_name(layers)
         self.films = _by_name(films)
         self.holes = _by_name(holes)
         self.abstract_regions = _by_name(abstract_regions)
-        self.terminals: Dict[str, List[Polygon]] = {}
+        self.terminals: Dict[str, List[Polygon]] = dict(terminals or {})
         self.length_units = length_units
         self.solve_dtype = solve_dtype
         self.meshes: Optional[Dict[str, Mesh]] = None
+        if set(self.terminals) - set(self.films):
+            raise ValueError(
+                "terminals.keys() must be a subset of films.keys() "
+                f"({list(self.films)!r})."
+            )
+        # Terminals live in their film's layer by construction.
+        for film_name, terms in self.terminals.items():
+            for terminal in terms:
+                terminal.layer = self.films[film_name].layer
         for label, group in (("film", self.films), ("hole", self.holes)):
             for polygon in group.values():
                 if not polygon.is_valid:
@@ -108,13 +127,14 @@ class Device:
 
     def polygons_by_layer(self, polygon_type: str) -> Dict[str, List[Polygon]]:
         """``{layer_name: [polygons of the given type in that layer]}`` for
-        ``polygon_type`` in ``("film", "hole", "abstract")``."""
+        ``polygon_type`` in ``("film", "hole", "abstract", "terminal")``."""
         groups = {
-            "film": self.films,
-            "hole": self.holes,
-            "abstract": self.abstract_regions,
+            "film": self.films.values(),
+            "hole": self.holes.values(),
+            "abstract": self.abstract_regions.values(),
+            "terminal": [t for terms in self.terminals.values() for t in terms],
         }
-        chosen = list(groups[polygon_type].values())
+        chosen = list(groups[polygon_type])
         return {
             layer: [p for p in chosen if p.layer == layer] for layer in self.layers
         }
@@ -138,6 +158,9 @@ class Device:
             layers=[layer.copy() for layer in self.layers.values()],
             films=[film.copy() for film in self.films.values()],
             holes=[hole.copy() for hole in self.holes.values()],
+            terminals={
+                film: [t.copy() for t in terms] for film, terms in self.terminals.items()
+            },
             abstract_regions=[r.copy() for r in self.abstract_regions.values()],
             length_units=self.length_units,
             solve_dtype=self.solve_dtype,
@@ -155,6 +178,7 @@ class Device:
         join_style: str = "round",
         min_points: Union[int, Dict[str, int], None] = None,
         max_edge_length: Union[float, Dict[str, float], None] = None,
+        preserve_boundary: bool = False,
         smooth: Union[int, Dict[str, int]] = 0,
     ) -> None:
         """Generates the triangular mesh for each film into ``self.meshes``.
@@ -169,6 +193,8 @@ class Device:
             join_style: Join style for the buffered region.
             min_points: Minimum number of mesh vertices per film.
             max_edge_length: Maximum mesh edge length per film.
+            preserve_boundary: Do not add vertices on the boundary (always
+                true for films with terminals).
             smooth: Laplacian smoothing iterations.
         """
         names = list(self.films)
@@ -186,6 +212,7 @@ class Device:
             name: self._mesh_film(
                 name,
                 join_style=join_style,
+                preserve_boundary=preserve_boundary,
                 **{key: per_film[name] for key, per_film in options.items()},
             )
             for name in names
@@ -200,18 +227,21 @@ class Device:
         join_style,
         min_points,
         max_edge_length,
+        preserve_boundary,
         smooth,
     ) -> Mesh:
-        """Mesh a single film: optional buffered vacuum margin, hole and
+        """Mesh a single film: optional buffered vacuum margin (never for a
+        film with terminals, whose boundary is preserved), hole and
         abstract-region outlines as conforming feature rings."""
         film = self.films[name]
+        has_terminals = name in self.terminals
         interior_features = [
             poly.points
             for group in ("hole", "abstract")
             for poly in self.polygons_by_layer(group)[film.layer]
             if film.contains_points(poly.points).all()
         ]
-        if buffer == 0 or (buffer_factor is None and buffer is None):
+        if has_terminals or buffer == 0 or (buffer_factor is None and buffer is None):
             outer = film.points
         else:
             # Mesh a buffered bounding region so some vacuum margin around
@@ -227,6 +257,7 @@ class Device:
             feature_rings=interior_features,
             min_points=min_points,
             max_edge_length=max_edge_length,
+            preserve_boundary=preserve_boundary or has_terminals,
         )
         if smooth:
             return Mesh.from_triangulation(
@@ -235,9 +266,12 @@ class Device:
         return Mesh.from_triangulation(points, triangles)
 
     def boundary_vertices(self, film: str) -> np.ndarray:
-        """Boundary vertex indices for a film's mesh, ordered CCW."""
+        """Boundary vertex indices for a film's mesh, ordered CCW.  For a
+        film with terminals the cycle is rolled so that no terminal's
+        vertices straddle the start/end of the array."""
         mesh = self.meshes[film]
-        return mgen.boundary_vertices(mesh.sites, mesh.elements)
+        cycle = mgen.boundary_vertices(mesh.sites, mesh.elements)
+        return _unwrap_terminals(cycle, mesh.sites, self.terminals.get(film, []))
 
     def __repr__(self) -> str:
         return (

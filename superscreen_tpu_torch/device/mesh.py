@@ -32,6 +32,8 @@ class Mesh:
         boundary_indices: Indices of boundary vertices.
         vertex_areas: ``(n,)`` effective vertex areas.
         triangle_areas: ``(m,)`` triangle areas.
+        triangle_centroids: ``(m, 2)`` triangle centroids (derived from
+            the sites and elements).
         build_operators: Whether to build the :class:`MeshOperators`.
     """
 
@@ -49,6 +51,7 @@ class Mesh:
         self.boundary_indices = np.asarray(boundary_indices, dtype=np.int64)
         self.vertex_areas = np.asarray(vertex_areas, dtype=float)
         self.triangle_areas = np.asarray(triangle_areas, dtype=float)
+        self.triangle_centroids = self.sites[self.elements].mean(axis=1)
         self.operators = MeshOperators.from_mesh(self) if build_operators else None
 
     @staticmethod
@@ -103,6 +106,8 @@ class MeshOperators:
         weights: Effective vertex areas, shape ``(n,)``.
         sites: Mesh vertex coordinates (kept to build ``Q`` on demand).
         gradient_x, gradient_y: Vertex gradient operators (COO, ``(n, n)``).
+        gradient_tri_x, gradient_tri_y: Triangle gradient operators (COO,
+            ``(m, n)``).
         laplacian: Laplace-Beltrami operator (COO, ``(n, n)``).
     """
 
@@ -113,12 +118,16 @@ class MeshOperators:
         sites: np.ndarray,
         gradient_x: fem.COO,
         gradient_y: fem.COO,
+        gradient_tri_x: fem.COO,
+        gradient_tri_y: fem.COO,
         laplacian: fem.COO,
     ):
         self.weights = weights
         self.sites = sites
         self.gradient_x = gradient_x
         self.gradient_y = gradient_y
+        self.gradient_tri_x = gradient_tri_x
+        self.gradient_tri_y = gradient_tri_y
         self.laplacian = laplacian
 
     @staticmethod
@@ -128,11 +137,16 @@ class MeshOperators:
         gx, gy = fem.gradient_vertices_coo(
             sites, elements, areas=mesh.triangle_areas
         )
+        gtx, gty = fem.gradient_triangles_coo(
+            sites, elements, areas=mesh.triangle_areas
+        )
         return MeshOperators(
             weights=mesh.vertex_areas,
             sites=sites,
             gradient_x=gx,
             gradient_y=gy,
+            gradient_tri_x=gtx,
+            gradient_tri_y=gty,
             laplacian=fem.build_laplacian_coo(
                 sites, elements, masses=mesh.vertex_areas
             ),

@@ -179,11 +179,14 @@ def _build_once(
     hole_rings: List[np.ndarray],
     feature_rings: List[np.ndarray],
     h: float,
+    preserve_boundary: bool = False,
     smooth_rounds: int = 2,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    # 1. Fixed points: boundary ring + feature rings.
-    bring = _densify_ring(region_ring, h)
-    fixed = [bring] + [_densify_ring(ring, h) for ring in hole_rings + feature_rings]
+    # 1. Fixed points: boundary ring + feature rings, taken as given when
+    # the boundary is preserved and subdivided to segments <= h otherwise.
+    ring_points = ops.orient_ccw if preserve_boundary else (lambda r: _densify_ring(r, h))
+    bring = ring_points(region_ring)
+    fixed = [bring] + [ring_points(ring) for ring in hole_rings + feature_rings]
     fixed_pts = ensure_unique(np.concatenate(fixed, axis=0))
     region = _closed(bring)
     holes = [_closed(ops.orient_ccw(hr)) for hr in hole_rings]
@@ -236,6 +239,7 @@ def generate_mesh(
     min_points: Optional[int] = None,
     max_edge_length: Optional[float] = None,
     feature_rings: Optional[Sequence[np.ndarray]] = None,
+    preserve_boundary: bool = False,
     smooth_rounds: int = 2,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Generates a boundary-conforming Delaunay mesh for a polygonal region.
@@ -244,7 +248,10 @@ def generate_mesh(
         poly_coords: Shape ``(n, 2)`` outer polygon coordinates.
         hole_coords: Hole boundary rings; triangles inside them are dropped.
         min_points: Minimum number of vertices in the resulting mesh.
-        max_edge_length: Maximum length of mesh edges.
+        max_edge_length: Maximum length of (interior, if
+            ``preserve_boundary``) mesh edges.
+        preserve_boundary: Do not add vertices to the boundary (mandatory
+            for films with transport terminals).
         feature_rings: Polygon outlines the mesh must conform to (their
             interiors are meshed).
         smooth_rounds: Rounds of (smooth + re-triangulate) per build.
@@ -277,9 +284,12 @@ def generate_mesh(
 
     for iteration in range(40):
         points, triangles = _build_once(
-            region_ring, hole_rings, feat_rings, h, smooth_rounds=smooth_rounds
+            region_ring, hole_rings, feat_rings, h, preserve_boundary,
+            smooth_rounds=smooth_rounds,
         )
-        edges, _ = get_edges(triangles)
+        edges, is_boundary = get_edges(triangles)
+        if preserve_boundary and not is_boundary.all():
+            edges = edges[~is_boundary]
         max_length = float(
             np.linalg.norm(np.diff(points[edges], axis=1), axis=2).max()
         )

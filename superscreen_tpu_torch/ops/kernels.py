@@ -24,6 +24,8 @@ __all__ = [
     "Q_apply",
     "biot_savart_film_to_film_dz2",
     "biot_savart_pair_dz2",
+    "biot_savart_within_film",
+    "boundary_effective_field",
 ]
 
 _ONE_OVER_4PI = 1 / (4 * np.pi)
@@ -288,3 +290,50 @@ def biot_savart_pair_dz2(
     else:
         at2, at1 = biot_savart_pair_plain(*args, dz2)
     return (at2[0], at1[0]) if squeeze else (at2, at1)
+
+
+def biot_savart_within_film(
+    sites: torch.Tensor,
+    tri_centroids: torch.Tensor,
+    tri_areas: torch.Tensor,
+    tri_J: torch.Tensor,
+) -> torch.Tensor:
+    """In-plane Biot-Savart self-field of a film from triangle-centroid
+    current densities (the self-field of a film with transport terminals,
+    whose stream is nonzero on its boundary).
+
+    The same sum as :func:`biot_savart_film_to_film_dz2` with the triangle
+    centroids as sources, the mesh sites as evaluation points and
+    ``dz2 = 0``, so it takes that route: the ``biot_savart_batch`` kernel
+    on the card, its plain version on the CPU.  The JAX package's version
+    zeroes pairs at ``r = 0``; a centroid lies strictly inside its
+    triangle, so no site of a valid mesh coincides with one.
+
+    ``tri_J`` may be ``(m, 2)`` (returns ``(n,)``) or ``(B, m, 2)``
+    (returns ``(B, n)``).
+    """
+    return biot_savart_film_to_film_dz2(tri_centroids, tri_areas, tri_J, sites, 0.0)
+
+
+def boundary_effective_field(
+    sites: torch.Tensor,
+    boundary_centers: torch.Tensor,
+    boundary_lengths: torch.Tensor,
+    boundary_normals: torch.Tensor,
+    boundary_stream: torch.Tensor,
+    block: int = _BLOCK,
+) -> torch.Tensor:
+    """Effective field at the mesh ``sites`` ``(n, 2)`` from the
+    transport-current boundary stream: a line of dipoles along the film
+    edge, one per boundary segment (``(m, 2)`` centers and outward
+    normals, ``(m,)`` lengths and mid-segment stream values).  Plain
+    PyTorch on the tensors' device, in blocks of sites: ``n m`` terms, run
+    a few times per factorized model."""
+    out = torch.empty(sites.shape[0], dtype=sites.dtype, device=sites.device)
+    weight = boundary_stream * boundary_lengths
+    for lo in range(0, sites.shape[0], block):
+        dr = sites[lo : lo + block, None, :] - boundary_centers[None, :, :]
+        rinv = torch.rsqrt(torch.sum(dr * dr, dim=-1))
+        dot = -torch.sum(dr * boundary_normals[None, :, :], dim=-1)
+        out[lo : lo + block] = torch.sum(weight[None, :] * dot * (rinv * rinv * rinv), dim=1)
+    return _ONE_OVER_4PI * out

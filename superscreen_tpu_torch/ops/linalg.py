@@ -1,12 +1,13 @@
 """Linear algebra for the film systems.
 
-Counterpart of the LU and matrix-free CG paths of
+Counterpart of the LU and matrix-free paths of
 ``superscreen_tpu/ops/linalg.py``: ``-A`` is LU-factorized with
 :func:`torch.linalg.lu_factor` on the system's device, and solves use
 safeguarded fixed-count iterative refinement so that each returned column
 is the iterate with the smallest residual.  A film whose system is not
-materialized is solved by Jacobi-preconditioned CG on the matrix-free
-operator :func:`brandt_matvec`.
+materialized is solved on the matrix-free operator :func:`brandt_matvec`
+with a Jacobi preconditioner: by CG, or by BiCGStab when an inhomogeneous
+Lambda makes the operator non-symmetric.
 """
 
 import logging
@@ -23,10 +24,14 @@ logger = logging.getLogger("solve")
 __all__ = [
     "factor_system",
     "lu_solve",
+    "lu_solve_refined",
     "refine_safeguarded",
+    "system_residual",
     "large_factor_method",
     "brandt_matvec",
     "brandt_cg_solve_host",
+    "brandt_bicgstab_solve_host",
+    "matrix_free_solve_host",
     "CG_STATS",
 ]
 
@@ -66,6 +71,53 @@ def lu_solve(lu_perm: Tuple[torch.Tensor, torch.Tensor], h: torch.Tensor) -> tor
     return x[:, 0] if squeeze else x
 
 
+def lu_solve_refined(
+    A: torch.Tensor,
+    lu_perm: Tuple[torch.Tensor, torch.Tensor],
+    h: torch.Tensor,
+    refine_steps: int = 2,
+) -> torch.Tensor:
+    """Solves ``(-A) x = h`` with ``refine_steps`` rounds of plain
+    iterative refinement (``x += lu_solve(h + A @ x)``), for the solves
+    outside the sweep: the terminal bootstrap and the vortex response
+    columns."""
+    squeeze = h.ndim == 1
+    if squeeze:
+        h = h[:, None]
+    x = lu_solve(lu_perm, h)
+    for _ in range(refine_steps):
+        x = x + lu_solve(lu_perm, system_residual(A, h, x))
+    return x[:, 0] if squeeze else x
+
+
+#: Row-block size of :func:`system_residual`'s float64 pass.
+_RESIDUAL_BLOCK = 2048
+#: Fewest right-hand-side columns for which :func:`system_residual`
+#: accumulates a float32 system's residual in float64.
+F64_RESIDUAL_MIN_COLS = 2
+
+
+def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The residual ``h + A @ x`` of ``(-A) x = h`` (``h``, ``x`` of shape
+    ``(n, k)``), in the dtype of ``h``.
+
+    ``A x`` cancels to a small fraction of ``|A| |x|`` (the Brandt kernel's
+    rows and the Laplacian's both sum to nearly nothing on a smooth
+    stream), so a float32 product carries a rounding error that is large
+    against the residual itself.  For a float32 system with at least
+    :data:`F64_RESIDUAL_MIN_COLS` columns the product is therefore
+    accumulated in float64, over row blocks of ``A`` widened on the fly.
+    """
+    if A.dtype != torch.float32 or x.shape[1] < F64_RESIDUAL_MIN_COLS:
+        return h + A @ x
+    r = torch.empty_like(h)
+    x64 = x.double()
+    for lo in range(0, A.shape[0], _RESIDUAL_BLOCK):
+        rows = slice(lo, lo + _RESIDUAL_BLOCK)
+        r[rows] = torch.addmm(h[rows].double(), A[rows].double(), x64)
+    return r
+
+
 def refine_safeguarded(
     solve: Callable[[torch.Tensor], torch.Tensor],
     A: torch.Tensor,
@@ -77,16 +129,15 @@ def refine_safeguarded(
     ``(n, k)``) that returns, per column, the iterate with the smallest
     residual norm, so refinement never makes an answer worse.
 
-    The residual ``h + A x`` is a full-precision matrix product: the
-    caller keeps TF32 off, since a low-precision residual makes the
-    refinement diverge.
+    The residual comes from :func:`system_residual`; the caller keeps
+    TF32 off, since a low-precision residual makes the refinement diverge.
     """
-    r = h + A @ x
+    r = system_residual(A, h, x)
     best_x = x
     best_r2 = torch.sum(r * r, dim=0)
     for _ in range(steps):
         x = x + solve(r)
-        r = h + A @ x
+        r = system_residual(A, h, x)
         r2 = torch.sum(r * r, dim=0)
         best_x = torch.where((r2 < best_r2)[None, :], x, best_x)
         best_r2 = torch.minimum(r2, best_r2)
@@ -117,7 +168,9 @@ def brandt_matvec(op: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         op: Operator pieces: ``sub_sites (ni, 2)``, ``w_sub (ni,)``,
             ``diag (ni,)`` (the regularized Brandt diagonal, computed from
             the full site set), and the Lambda-scaled restricted Laplacian
-            as COO triplets ``lap_rows``, ``lap_cols``, ``lap_vals``.
+            (plus, for an inhomogeneous Lambda, the ``(grad Lambda) . grad``
+            term) as COO triplets ``lap_rows``, ``lap_cols``, ``lap_vals``;
+            ``nonsym`` is True when that term is present.
         x: ``(ni,)`` or ``(ni, B)``.
 
     Returns:
@@ -216,3 +269,81 @@ def brandt_cg_solve_host(
     CG_STATS["max_residual"] = max(CG_STATS["max_residual"], res)
     x = x / w
     return x[:, 0] if squeeze else x
+
+
+def brandt_bicgstab_solve_host(
+    op: Dict[str, torch.Tensor],
+    h: torch.Tensor,
+    tol: float = 1e-6,
+    maxiter: int = 1000,
+    chunk: int = 25,
+) -> torch.Tensor:
+    """Solves ``(-A) x = h`` matrix-free by BiCGStab with a right Jacobi
+    preconditioner, for an operator that carries the non-symmetric
+    ``(grad Lambda) . grad`` term of an inhomogeneous Lambda.
+
+    The iteration runs on ``K u = -h`` with ``K u = P (minv u)`` and
+    ``P = A diag(1/w)``; ``x = minv u / w``.  Like
+    :func:`brandt_cg_solve_host` it runs in chunks of ``chunk`` iterations
+    with one residual read on the host per chunk, and converged or
+    broken-down columns are held still by the zero-guarded scalars.
+
+    Args:
+        op: Operator pieces (see :func:`brandt_matvec`).
+        h: ``(ni,)`` or ``(ni, B)`` right-hand sides.
+
+    Returns:
+        ``x``, shaped like ``h``.
+    """
+    squeeze = h.ndim == 1
+    if squeeze:
+        h = h[:, None]
+    w = op["w_sub"][:, None]
+    minv = _jacobi_minv(op)
+
+    def K_matvec(u):
+        return brandt_matvec(op, (minv * u) / w)
+
+    def guarded_div(num, den):
+        return torch.where(den.abs() > 0, num / den, torch.zeros_like(num))
+
+    b = -h
+    bnorm = torch.clamp(torch.linalg.vector_norm(h, dim=0), min=1e-30)
+    x = torch.zeros_like(b)
+    r = rhat = b
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones(b.shape[1], dtype=b.dtype, device=b.device)
+    done = 0
+    res = np.inf
+    while done < maxiter:
+        for _ in range(min(chunk, maxiter - done)):
+            rho_new = torch.sum(rhat * r, dim=0)
+            beta = guarded_div(rho_new, rho) * guarded_div(alpha, omega)
+            p = r + beta[None, :] * (p - omega[None, :] * v)
+            v = K_matvec(p)
+            alpha = guarded_div(rho_new, torch.sum(rhat * v, dim=0))
+            s = r - alpha[None, :] * v
+            t = K_matvec(s)
+            omega = guarded_div(torch.sum(t * s, dim=0), torch.sum(t * t, dim=0))
+            x = x + alpha[None, :] * p + omega[None, :] * s
+            r = s - omega[None, :] * t
+            rho = rho_new
+        done += min(chunk, maxiter - done)
+        res = float(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm))
+        if res < tol or not np.isfinite(res):
+            break
+    _warn_if_unconverged(res, tol, "BiCGStab")
+    CG_STATS["solves"] += 1
+    CG_STATS["iterations"] += done
+    CG_STATS["max_residual"] = max(CG_STATS["max_residual"], res)
+    x = (minv * x) / w
+    return x[:, 0] if squeeze else x
+
+
+def matrix_free_solve_host(op: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    """A matrix-free solve of ``(-A) x = h``: CG for a symmetric operator,
+    BiCGStab when the operator carries the non-symmetric
+    inhomogeneous-Lambda term (``op["nonsym"]``)."""
+    if op.get("nonsym", False):
+        return brandt_bicgstab_solve_host(op, h)
+    return brandt_cg_solve_host(op, h)

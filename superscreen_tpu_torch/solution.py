@@ -1,17 +1,35 @@
 """Solution containers.
 
-Counterparts of ``FilmSolution`` and ``Solution`` in
-``superscreen_tpu/solution.py``, holding the fields :func:`solve` fills:
-per-film stream functions, current densities and fields as NumPy arrays.
+Counterparts of ``Vortex``, ``FilmSolution`` and ``Solution`` in
+``superscreen_tpu/solution.py``, holding the fields :func:`solve` and
+:func:`solve_many` fill: per-film stream functions, current densities and
+fields as NumPy arrays, and the drive they were solved for.
 Post-processing is not provided yet.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["FilmSolution", "Solution"]
+__all__ = ["Vortex", "FilmSolution", "Solution"]
+
+
+@dataclass
+class Vortex:
+    """A vortex at ``(x, y)`` in ``film`` carrying ``nPhi0`` flux quanta.
+
+    Args:
+        x: Vortex x-position.
+        y: Vortex y-position.
+        film: Name of the film in which the vortex is pinned.
+        nPhi0: Number of flux quanta in the vortex.
+    """
+
+    x: float
+    y: float
+    film: str
+    nPhi0: float = 1
 
 
 @dataclass(eq=False)
@@ -52,6 +70,9 @@ class Solution:
         field_units: Units of the applied/computed fields.
         current_units: Units of currents.
         circulating_currents: ``{hole_name: circulating_current}``.
+        terminal_currents: ``{film_name: {terminal_name: current}}``.
+        vortices: The vortices in the device.
+        solver: The entry point that produced the solution.
     """
 
     def __init__(
@@ -63,6 +84,9 @@ class Solution:
         field_units: str,
         current_units: str,
         circulating_currents: Optional[Dict[str, float]] = None,
+        terminal_currents: Optional[Dict[str, Dict[str, float]]] = None,
+        vortices: Optional[Sequence[Vortex]] = None,
+        solver: str = "superscreen_tpu_torch.solve",
     ):
         self.device = device
         self.film_solutions = film_solutions
@@ -70,3 +94,6 @@ class Solution:
         self.field_units = field_units
         self.current_units = current_units
         self.circulating_currents = dict(circulating_currents or {})
+        self.terminal_currents = dict(terminal_currents or {})
+        self.vortices = list(vortices or [])
+        self.solver = solver

@@ -2,28 +2,38 @@
 
 Counterpart of ``superscreen_tpu/solver/solve.py`` on its device-resident
 path: :func:`factorize_model` builds and LU-factorizes every film system on
-the torch device; :func:`solve` runs the initial per-film solve plus
+the torch device, with the model's terminal currents, circulating currents
+and vortices; :func:`solve` runs the initial per-film solve plus
 ``iterations`` rounds of exact self-consistent inter-film coupling and
 returns one :class:`Solution` per round.
 """
 
 import contextlib
+import copy
 import logging
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..device import Device
-from ..solution import FilmSolution, Solution
+from ..solution import FilmSolution, Solution, Vortex
 from ..sources import ConstantField
-from ..sweep import FilmSweepData, _run_sweep_history, film_sweep_data
-from .solve_film import LinearSystem, factorize_linear_systems
+from ..sweep import (
+    FilmSweepData,
+    _get_sweep_data,
+    _run_sweep_history,
+    film_sweep_data,
+    vortex_flux_quantum,
+    vortex_snapshot,
+)
+from .solve_film import LinearSystem, TerminalSystems, factorize_linear_systems
 from .utils import (
     FilmInfo,
     currents_to_floats,
     field_conversion_factor,
+    get_holes_and_vortices_by_film,
     make_film_info,
     torch_dtype,
 )
@@ -73,9 +83,13 @@ class FactorizedModel:
         film_systems: ``{film_name: LinearSystem}``.
         hole_systems: ``{film_name: {hole_name: LinearSystem}}``.
         film_data: ``{film_name: FilmSweepData}``, the tensors the solve
-            runs on.
+            runs on (built for the vortices in ``film_data_vortices``; see
+            :func:`superscreen_tpu_torch.sweep._get_sweep_data`).
         circulating_currents: ``{hole_name: current}``.
         current_units: The current units.
+        terminal_systems: ``{film_name: TerminalSystems}``.
+        terminal_currents: ``{film_name: {terminal_name: current}}``.
+        vortices: ``{film_name: vortices}``.
     """
 
     device: Device
@@ -86,6 +100,10 @@ class FactorizedModel:
     film_data: Dict[str, FilmSweepData]
     circulating_currents: Dict[str, float]
     current_units: str
+    terminal_systems: Dict[str, TerminalSystems] = field(default_factory=dict)
+    terminal_currents: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    vortices: Dict[str, Sequence[Vortex]] = field(default_factory=dict)
+    film_data_vortices: tuple = ()
 
     def set_circulating_currents(self, circulating_currents: Dict[str, float]) -> None:
         """Sets the circulating currents (floats in ``current_units``)
@@ -104,14 +122,37 @@ class FactorizedModel:
                 if hole in info.hole_indices
             }
 
+    def set_vortices(self, vortices: Sequence[Vortex]) -> None:
+        """Sets the vortices without re-factorizing (with the same
+        placement validation as :func:`factorize_model`); the next solve
+        rebuilds their response columns."""
+        per_film = get_holes_and_vortices_by_film(self.device, list(vortices))[1]
+        for name, info in self.film_info.items():
+            info.vortices = tuple(per_film[name])
+        self.vortices = {name: info.vortices for name, info in self.film_info.items()}
+
+    def copy(self) -> "FactorizedModel":
+        """A copy sharing the factorizations but with independent drive
+        state, so ``set_circulating_currents`` / ``set_vortices`` on the
+        copy never change the original."""
+        new = copy.copy(self)
+        new.film_info = {name: copy.copy(info) for name, info in self.film_info.items()}
+        for info in new.film_info.values():
+            info.circulating_currents = dict(info.circulating_currents)
+        new.circulating_currents = dict(self.circulating_currents)
+        new.terminal_currents = {k: dict(v) for k, v in self.terminal_currents.items()}
+        new.vortices = dict(self.vortices)
+        new.film_data = dict(self.film_data)
+        return new
+
 
 def factorize_model(
     *,
     device: Device,
     current_units: str,
     circulating_currents: Optional[Dict[str, Union[float, str]]] = None,
-    terminal_currents=None,
-    vortices=None,
+    terminal_currents: Optional[Dict[str, Dict]] = None,
+    vortices: Optional[Sequence[Vortex]] = None,
     torch_device="cuda",
 ) -> FactorizedModel:
     """Prepares the applied-field-independent part of a model: builds and
@@ -123,31 +164,57 @@ def factorize_model(
             ``current_units / device.length_units``.
         circulating_currents: ``{hole_name: current}`` (floats in
             ``current_units``, or strings/Quantities with units).
-        terminal_currents: Not supported yet; must be empty.
-        vortices: Not supported yet; must be empty.
+        terminal_currents: ``{film_name: {terminal_name: current}}``; the
+            currents of a film must sum to zero.
+        vortices: Vortices in the device.
         torch_device: ``"cuda"`` (default; raises without a card) or
             ``"cpu"``.
     """
-    if terminal_currents:
-        raise NotImplementedError("Terminal currents are not supported yet.")
     torch_device = resolve_torch_device(torch_device)
     circulating_currents = currents_to_floats(
         circulating_currents or {}, device.ureg, current_units
     )
+    terminal_currents = {
+        film_name: currents_to_floats(currents, device.ureg, current_units)
+        for film_name, currents in (terminal_currents or {}).items()
+    }
+    # Validate names up front: a misspelled hole, film or terminal key
+    # would otherwise be dropped by the .get(name, 0) lookups downstream.
     unknown_holes = set(circulating_currents) - set(device.holes)
     if unknown_holes:
         raise KeyError(
             "circulating_currents contains keys not in device.holes: "
             f"{sorted(unknown_holes)!r}"
         )
+    for film_name, currents in terminal_currents.items():
+        if film_name not in device.terminals:
+            raise KeyError(
+                f"terminal_currents film {film_name!r} has no terminals "
+                f"(films with terminals: {sorted(device.terminals)!r})."
+            )
+        terminal_names = {t.name for t in device.terminals[film_name]}
+        unknown = set(currents) - terminal_names
+        if unknown:
+            raise KeyError(
+                f"terminal_currents[{film_name!r}] contains unknown terminals "
+                f"{sorted(unknown)!r} (have: {sorted(terminal_names)!r})."
+            )
+        # Conservation up to float rounding.
+        total = sum(currents.values())
+        scale = max((abs(c) for c in currents.values()), default=0.0)
+        if abs(total) > 1e-9 * max(1.0, scale):
+            raise ValueError(f"Terminal currents in film {film_name!r} are not conserved.")
     with highest_matmul_precision():
         film_info = make_film_info(
             device=device,
             circulating_currents=circulating_currents,
             torch_device=torch_device,
-            vortices=vortices,
+            vortices=list(vortices or []),
+            terminal_currents=terminal_currents,
         )
-        film_systems, hole_systems = factorize_linear_systems(device, film_info)
+        film_systems, hole_systems, terminal_systems = factorize_linear_systems(
+            device, film_info
+        )
         model = FactorizedModel(
             device=device,
             torch_device=torch_device,
@@ -157,8 +224,12 @@ def factorize_model(
             film_data={},
             circulating_currents=circulating_currents,
             current_units=current_units,
+            terminal_systems=terminal_systems,
+            terminal_currents=terminal_currents,
+            vortices={name: info.vortices for name, info in film_info.items()},
         )
         model.film_data = {name: film_sweep_data(model, name) for name in device.films}
+        model.film_data_vortices = vortex_snapshot(model)
     return model
 
 
@@ -192,8 +263,8 @@ def solve(
     model: Optional[FactorizedModel] = None,
     applied_field: Optional[Callable] = None,
     circulating_currents: Optional[Dict[str, Union[float, str]]] = None,
-    terminal_currents=None,
-    vortices=None,
+    terminal_currents: Optional[Dict[str, Dict]] = None,
+    vortices: Optional[Sequence[Vortex]] = None,
     field_units: str = "mT",
     current_units: str = "uA",
     iterations: int = 0,
@@ -208,12 +279,13 @@ def solve(
 
     Args:
         device: The device to simulate (or provide ``model``).
-        model: A pre-factorized model (mutually exclusive with ``device``
-            and ``circulating_currents``).
+        model: A pre-factorized model (mutually exclusive with ``device``,
+            ``circulating_currents``, ``terminal_currents`` and
+            ``vortices``).
         applied_field: Callable ``H_z(x, y, z)`` in ``field_units``.
         circulating_currents: ``{hole_name: current}``.
-        terminal_currents: Not supported yet; must be empty.
-        vortices: Not supported yet; must be empty.
+        terminal_currents: ``{film_name: {terminal_name: current}}``.
+        vortices: Vortices in the device.
         field_units: Units of the applied field (H or B).
         current_units: Units for currents.
         iterations: Number of self-consistent coupling rounds.
@@ -269,7 +341,7 @@ def solve(
     }
     I_circ = {
         name: torch.tensor(
-            [[model.circulating_currents.get(h, 0.0) for h in model.film_data[name].hole_names]],
+            [[model.circulating_currents.get(h, 0.0) for h in model.film_info[name].hole_indices]],
             dtype=tdtype,
             device=torch_device,
         )
@@ -278,7 +350,12 @@ def solve(
     coupled = len(films) >= 2 and iterations >= 1
     with highest_matmul_precision():
         gs, Js, selfs, others = _run_sweep_history(
-            model.film_data, Hz, I_circ, iterations if coupled else 0, 2
+            _get_sweep_data(model),
+            Hz,
+            I_circ,
+            vortex_flux_quantum(device, current_units),
+            iterations if coupled else 0,
+            2,
         )
     gs, Js, selfs, others = (
         {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)
@@ -304,6 +381,8 @@ def solve(
                 field_units=field_units,
                 current_units=current_units,
                 circulating_currents=model.circulating_currents,
+                terminal_currents=model.terminal_currents,
+                vortices=[v for vs in model.vortices.values() for v in vs],
             )
         )
     return solutions

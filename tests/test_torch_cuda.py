@@ -319,3 +319,125 @@ def test_solve_on_the_card_matches_cpu_float64(cuda, monkeypatch, low_memory):
             a = g.film_solutions[name].stream
             b = c.film_solutions[name].stream
             assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+def _two_films(sites_per_film, solve_dtype):
+    layers = [st.Layer("l0", Lambda=1.0, z0=0), st.Layer("l1", Lambda=0.5, z0=1)]
+    films = [
+        st.Polygon("big", layer="l0", points=st.geometry.circle(7.5, points=120)),
+        st.Polygon("small", layer="l1", points=st.geometry.circle(5, points=100)),
+    ]
+    holes = [
+        st.Polygon("big_hole", layer="l0", points=st.geometry.circle(3.75, points=70)),
+        st.Polygon("small_hole", layer="l1", points=st.geometry.circle(2.5, points=60)),
+    ]
+    device = st.Device("two", layers=layers, films=films, holes=holes, solve_dtype=solve_dtype)
+    device.make_mesh(min_points=sites_per_film)
+    return device
+
+
+@pytest.mark.parametrize("low_memory", [False, True])
+@pytest.mark.parametrize("solve_dtype", ["float32", "float64"])
+def test_solve_many_on_the_card_matches_cpu(cuda, monkeypatch, solve_dtype, low_memory):
+    """B = 8 on two films of about 2,000 sites: the card (kernels) against
+    the CPU (plain versions) at float64, with per-point circulating
+    currents and a vortex."""
+    device = _two_films(2000, solve_dtype)
+    if low_memory:
+        monkeypatch.setattr(st.solver.utils, "MAX_DENSE_KERNEL_SIZE", 10)
+    cpu_device = device.copy()
+    cpu_device.solve_dtype = "float64"
+    B = 8
+    kwargs = dict(
+        applied_fields=[st.sources.ConstantField(v) for v in np.linspace(0.1, 1.0, B)],
+        circulating_currents=[{"big_hole": 100.0 * b, "small_hole": -30.0} for b in range(B)],
+        vortices=[st.Vortex(x=5.5, y=0.0, film="big")],
+        vortex_nPhi0=np.arange(B, dtype=float)[:, None] - 3,
+        iterations=3,
+    )
+    before = dict(cuda_kernels.LAUNCHES)
+    gpu = st.solve_many(device, torch_device="cuda", **kwargs)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] - before["biot_savart_batch"] == 6
+    cpu = st.solve_many(cpu_device, torch_device="cpu", **kwargs)
+    assert len(gpu) == len(cpu) == B
+    tol = 1e-4 if solve_dtype == "float32" else 1e-9
+    for quantity in ("streams", "current_densities", "self_fields", "other_fields"):
+        for name in device.films:
+            a, b = getattr(gpu, quantity)[name], getattr(cpu, quantity)[name]
+            assert a.dtype == np.dtype(solve_dtype) and a.shape == b.shape
+            scale = np.abs(b).max(axis=tuple(range(1, b.ndim)), keepdims=True)
+            # Current densities are derivatives of the stream: one more
+            # factor of the mesh's inverse edge length in float32.
+            factor = 30 if quantity in ("current_densities", "self_fields") else 1
+            assert (np.abs(a - b) / scale).max() <= factor * tol, (quantity, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 8])
+def test_within_film_field_takes_the_batch_kernel(cuda, dtype, B):
+    """The terminal film's self-field on the card is the biot_savart_batch
+    kernel with the triangle centroids as sources and dz2 = 0."""
+    film = st.Polygon("strip", layer="base", points=st.geometry.box(4, 2, points=120))
+    device = st.Device(
+        "strip", layers=[st.Layer("base", Lambda=1)], films=[film],
+        terminals={"strip": [
+            st.Polygon("source", points=st.geometry.box(0.2, 2, center=(-2, 0))),
+            st.Polygon("drain", points=st.geometry.box(0.2, 2, center=(2, 0))),
+        ]},
+    )
+    device.make_mesh(min_points=2000)
+    mesh = device.meshes["strip"]
+    rng = np.random.default_rng(B)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    sites, centroids, areas = t(mesh.sites), t(mesh.triangle_centroids), t(mesh.triangle_areas)
+    J = t(rng.standard_normal((B, len(areas), 2)))
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    out = kernels.biot_savart_within_film(sites, centroids, areas, J)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1
+    ref = kernels.biot_savart_plain(centroids, areas, J, sites, 0.0)
+    assert out.shape == (B, len(mesh.sites)) and bool(torch.isfinite(out).all())
+    assert _rel_err(out, ref) <= TOL[dtype]
+    cpu = kernels.biot_savart_within_film(*(a.cpu() for a in (sites, centroids, areas, J)))
+    assert _rel_err(out.cpu(), cpu) <= TOL[dtype]
+
+
+def test_transport_sweep_on_the_card_matches_cpu_float64(cuda):
+    """A bias sweep of a terminal strip with a hole and a position-dependent
+    Lambda, float32 on the card against float64 on the CPU."""
+
+    def weak_spot(x, y, sigma=0.7):
+        return 1.0 + 0.5 * np.exp(-(x**2 + (y - 0.3) ** 2) / (2 * sigma**2))
+
+    def build(solve_dtype):
+        film = st.Polygon("strip", layer="base", points=st.geometry.box(4, 2, points=160))
+        hole = st.Polygon("hole", layer="base", points=st.geometry.circle(0.4, points=32, center=(-0.8, 0)))
+        return st.Device(
+            "strip", layers=[st.Layer("base", Lambda=st.Parameter(weak_spot))], films=[film],
+            holes=[hole], solve_dtype=solve_dtype,
+            terminals={"strip": [
+                st.Polygon("source", points=st.geometry.box(0.2, 2, center=(-2, 0))),
+                st.Polygon("drain", points=st.geometry.box(0.2, 2, center=(2, 0))),
+            ]},
+        )
+
+    device = build("float32")
+    device.make_mesh(min_points=2000)
+    cpu_device = build("float64")
+    cpu_device.meshes = device.meshes
+    B = 4
+    kwargs = dict(
+        applied_fields=[st.sources.ConstantField(0.05)] * B,
+        terminal_currents=[{"strip": {"source": 1.0 + b, "drain": -1.0 - b}} for b in range(B)],
+        circulating_currents=[{"hole": 0.5 * b} for b in range(B)],
+    )
+    gpu = st.solve_many(device, torch_device="cuda", **kwargs)
+    cpu = st.solve_many(cpu_device, torch_device="cpu", **kwargs)
+    for quantity in ("streams", "self_fields"):
+        a, b = getattr(gpu, quantity)["strip"], getattr(cpu, quantity)["strip"]
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max(), quantity
+    assert np.abs(gpu.streams["strip"] - cpu.streams["strip"]).max() <= 1e-4 * np.abs(
+        cpu.streams["strip"]
+    ).max()

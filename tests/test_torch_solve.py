@@ -182,7 +182,12 @@ def test_cuda_without_a_card_raises():
     [
         (lambda d: st.solve(d, coupling="fft", torch_device="cpu"), NotImplementedError),
         (lambda d: st.solve(d, coupling="bogus", torch_device="cpu"), ValueError),
-        (lambda d: st.solve(d, vortices=[object()], torch_device="cpu"), NotImplementedError),
+        (lambda d: st.solve(d, vortices=[object()], torch_device="cpu"), TypeError),
+        (lambda d: st.solve(d, terminal_currents={"ring": {"a": 1.0}}, torch_device="cpu"), KeyError),
+        (lambda d: st.solve_many(d, applied_fields=[], final_refine=1, torch_device="cpu"),
+         NotImplementedError),
+        (lambda d: st.solve_many(d, applied_fields=[], coupling="fft", torch_device="cpu"),
+         NotImplementedError),
         (lambda d: st.solve(d, torch_device="meta"), ValueError),
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
     ],
@@ -194,11 +199,23 @@ def test_unsupported_options_raise(call, error):
 
 
 def test_unsupported_device_features_raise():
-    with pytest.raises(NotImplementedError):
-        st.Layer("l", Lambda=st.Constant(0.5))
+    # A position-dependent Lambda and terminals are supported; what a layer
+    # or a device still refuses is an inconsistent specification.
+    assert st.Layer("l", Lambda=st.Constant(0.5)).Lambda(0.0, 0.0) == 0.5
+    with pytest.raises(ValueError):
+        st.Layer("l", Lambda=st.Constant(0.5), thickness=0.1)
+    with pytest.raises(ValueError):
+        st.Layer("l", london_lambda=0.1)
+    with pytest.raises(AttributeError):
+        st.Layer("l", Lambda=1.0).london_lambda = 0.2
     film = st.Polygon("f", layer="l", points=st.geometry.circle(1.0))
-    with pytest.raises(NotImplementedError):
-        st.Device("d", layers=[st.Layer("l", Lambda=1.0)], films=[film], terminals={"f": [film]})
+    terminal = st.Polygon("t", points=st.geometry.box(0.2, 0.5, center=(1, 0)))
+    device = st.Device(
+        "d", layers=[st.Layer("l", Lambda=1.0)], films=[film], terminals={"f": [terminal]}
+    )
+    assert device.terminals["f"][0].layer == "l"
+    with pytest.raises(ValueError):
+        st.Device("d", layers=[st.Layer("l", Lambda=1.0)], films=[film], terminals={"g": [film]})
 
 
 def test_import_pulls_in_no_jax_or_reference_package():
