@@ -50,13 +50,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    and a Gaussian weak spot in Lambda, under a ring of about 26,000 sites
    at z0 = 1 on the low-memory path, two vortices in the strip.
    ``solve_many`` sweeps the bias current and the vortex amplitudes over
-   eight points with three coupling rounds.  Residuals at most 1e-4; the
-   stream on the strip's two long edges differs by the drive current
-   within 1e-3; float32 on the card against float64 on the CPU on a coarse
-   copy within 1e-4; with SUPERSCREEN_TPU_LARGE_FACTOR=cg the ring takes
-   the BiCGStab route and its streams are within 1e-4 of LU's.  The
+   eight points with three coupling rounds.  Residuals at most 1e-4; with
+   the drive alone the current through three cross-sections of the strip
+   (``Solution.current_through_path``, 4,001 points each) equals the drive
+   current within 1e-3 at every sweep point, and in the full sweep within
+   1e-2 of the gross current crossing the section; float32 on the card against
+   float64 on the CPU on a coarse copy within 1e-4; with
+   SUPERSCREEN_TPU_LARGE_FACTOR=cg the ring takes the BiCGStab route, its
+   streams are within 1e-4 of LU's, and a second factorization and sweep
+   take the same number of iterations and give the same bits.  The
    in-film self-field of the strip (biot_savart_batch with the triangle
    centroids as sources) is held against its plain version and timed.
+9. Post-processing at full width, on phase 4's model and solutions (the
+   uncut 27,000-site stack, float32) and a sweep of it: the field on a
+   256 x 256 map above the stack (``field_at_position``: one
+   biot_savart_batch launch per film, held against the plain version and
+   timed beside its bound), the vector field and the vector potential on
+   the same map (Bz against the curl of A), interpolation at 100,000
+   random points of one film (none may be lost; point location is
+   float64), the fluxoids of the four holes, the mutual-inductance matrix
+   in float32 and in float64 on the card (within 1e-3 of each other), and
+   ``find_fluxoid_solution`` with one flux quantum in the outer ring's
+   hole (targets met within 1e-3 Phi_0).
 
 Phase 1 also runs q_apply, biot_savart_batch and biot_savart_pair against
 their plain versions on the 27,000-site films, the pair kernel against two
@@ -109,6 +124,30 @@ SITES_RING = 26000
 SITES_COARSE = 1500
 TRANSPORT_ITERATIONS = 3
 EDGE_CURRENT_TOL = 1e-3
+# Current conservation of the JAX package's transport benchmark, printed
+# beside the port's.
+JAX_CURRENT_CONSERVATION = 2.4e-4
+# The full sweep's net current through a section, against the gross current
+# crossing it both ways (screening currents of the field and the vortices,
+# hundreds of times the drive): a quadrature bound, measured ~2e-3 on a
+# 2,000-site copy of the strip.
+GROSS_CURRENT_TOL = 1e-2
+# Phase 9: the side of the field map, the height of the map above the
+# stack (the top film lies at z0 = 1.5), the number of interpolation
+# queries, and the limits.
+MAP_SIDE = 256
+MAP_HEIGHT = 2.0
+INTERP_POINTS = 100000
+# Bz from central differences of A on the map's grid (spacing 0.066)
+# against the summed Bz, relative to max|Bz|; the JAX package's own test
+# allows 5e-2.
+CURL_TOL = 5e-2
+SITE_VALUE_TOL = 1e-6
+MUTUAL_F32_TOL = 1e-3
+FLUXOID_TOL = 1e-3
+# The JAX package's Huber mutual inductance against float64, after its
+# float64 polish, printed beside the port's unpolished float32 figure.
+JAX_MUTUAL_REL_ERR = 5.09e-6
 # The torch device of the sweep phases.
 CARD = "cuda"
 
@@ -973,23 +1012,61 @@ def transport_sweep_kwargs(st, B=8):
 TRANSPORT_VORTICES = [(3.0, 1.0), (6.0, -2.0)]
 
 
-def _check_edge_currents(device, result, drives):
-    """The stream on the strip's two long edges must differ by the drive
-    current at every sweep point."""
-    sites = device.meshes["strip"].sites
-    top = np.isclose(sites[:, 1], sites[:, 1].max())
-    bottom = np.isclose(sites[:, 1], sites[:, 1].min())
-    worst = 0.0
-    for b, drive in enumerate(drives):
-        g = result.streams["strip"][b].astype(np.float64)
-        current = drive["strip"]["source"]
-        spread = max(np.ptp(g[top]), np.ptp(g[bottom]))
-        worst = max(worst, (abs(abs(g[top].mean() - g[bottom].mean()) - current) + spread) / current)
-    print(
-        f"phase8 strip: stream difference of the long edges against the drive current, "
-        f"largest relative deviation {worst:.3e} (limit {EDGE_CURRENT_TOL:.0e})"
+def _crossing_currents(solution):
+    """The current through three cross-sections of the strip and the gross
+    current ``int |J . n| dl`` crossing each.  The sections run 0.5 past
+    both long edges (``J`` is zero outside the film), have 4,001 points
+    (with 101 the quadrature error of the edge singularity of ``J`` is
+    ~1.5e-2) and stay clear of the hole (x in [-6.5, -3.5]) and of the
+    vortices (TRANSPORT_VORTICES)."""
+    ys = np.linspace(-4.5, 4.5, 4001)
+    out = []
+    for x in (-8.25, -1.0, 8.25):
+        path = np.stack([np.full_like(ys, x), ys], axis=1)
+        crossing = solution.current_through_path(path, film="strip", with_units=False)
+        J = solution.interp_current_density(0.5 * (path[:-1] + path[1:]), film="strip")
+        out.append((abs(crossing), float(np.sum(np.abs(J[:, 0])) * (ys[1] - ys[0]))))
+    return out
+
+
+def _check_current_conservation(torch, st, model, result, sweep_kwargs):
+    """Current conservation of the solve, by ``Solution.current_through_path``.
+
+    With the transport drive alone (no applied field, no vortices, no hole
+    current: the setting of the JAX package's transport benchmark) the
+    current through every cross-section must equal the drive current within
+    EDGE_CURRENT_TOL at all sweep points.  In the full sweep the screening
+    currents of the field and of the vortices cross a section both ways at
+    hundreds of times the drive and cancel in the integral, so the same
+    integral is held to the gross current crossing the section instead."""
+    drives = sweep_kwargs["terminal_currents"]
+    B = len(drives)
+    alone, _ = _sweep(
+        torch, st, model=model, applied_fields=[st.sources.ConstantField(0)] * B,
+        terminal_currents=drives, vortex_nPhi0=np.zeros((B, len(TRANSPORT_VORTICES))),
+        iterations=TRANSPORT_ITERATIONS,
     )
-    _require(worst <= EDGE_CURRENT_TOL, f"edge stream difference {worst:.3e}")
+    worst = worst_full = worst_gross = 0.0
+    for b, drive in enumerate(drives):
+        current = drive["strip"]["source"]
+        for crossing, _ in _crossing_currents(alone.solution(b)):
+            worst = max(worst, abs(crossing - current) / current)
+        for crossing, gross in _crossing_currents(result.solution(b)):
+            worst_full = max(worst_full, abs(crossing - current) / current)
+            worst_gross = max(worst_gross, abs(crossing - current) / gross)
+    print(
+        f"phase8 strip, drive alone: current through 3 cross-sections against the drive current "
+        f"at {B} sweep points, largest relative deviation {worst:.3e} (limit "
+        f"{EDGE_CURRENT_TOL:.0e}; the JAX package's transport benchmark: "
+        f"{JAX_CURRENT_CONSERVATION:.1e})"
+    )
+    print(
+        f"phase8 strip, full sweep (field, vortices, hole currents): largest deviation "
+        f"{worst_full:.3e} of the drive current, {worst_gross:.3e} of the gross current crossing "
+        f"the section (limit {GROSS_CURRENT_TOL:.0e})"
+    )
+    _require(worst <= EDGE_CURRENT_TOL, f"current conservation {worst:.3e}")
+    _require(worst_gross <= GROSS_CURRENT_TOL, f"current against the gross current {worst_gross:.3e}")
 
 
 def _time_within_film(torch, kernels, cuda_kernels, data, B):
@@ -1083,7 +1160,7 @@ def phase_transport(torch, st, kernels, cuda_kernels):
         torch, model, result, "phase8", film_data=film_data,
         circulating=sweep_kwargs["circulating_currents"],
     )
-    _check_edge_currents(device, result, sweep_kwargs["terminal_currents"])
+    _check_current_conservation(torch, st, model, result, sweep_kwargs)
     _time_within_film(torch, kernels, cuda_kernels, strip, B)
     _profile(
         torch, lambda: _sweep(torch, st, model=model, **sweep_kwargs)[1],
@@ -1132,7 +1209,22 @@ def _transport_comparisons(
         cg_model = factorize(device)
         cg_result, cg_s = _sweep(torch, st, model=cg_model, **sweep_kwargs)
         cg_launches = dict(cuda_kernels.LAUNCHES)
-    stats = dict(linalg.CG_STATS)
+        stats = dict(linalg.CG_STATS)
+        # Once more from the factorization on: the sparse products are in
+        # gather form, so the run must repeat to the bit.
+        linalg.CG_STATS.update(solves=0, iterations=0, max_residual=0.0)
+        again, _ = _sweep(torch, st, model=factorize(device), **sweep_kwargs)
+        again_iterations = linalg.CG_STATS["iterations"]
+    same_bits = all(
+        np.array_equal(cg_result.streams[name], again.streams[name]) for name in cg_result.streams
+    )
+    print(
+        f"phase8 BiCGStab ring twice: {stats['iterations']} and {again_iterations} iterations, "
+        f"streams bitwise equal: {same_bits}"
+    )
+    _require(again_iterations == stats["iterations"], "BiCGStab iteration counts differ")
+    _require(same_bits, "two BiCGStab runs differ")
+    del again
     _require(cg_model.film_data["ring"].fac_kind == "bicgstab", "ring not on the BiCGStab route")
     _require(cg_model.film_data["ring"].A is None, "ring system materialized")
     _require(cg_model.film_data["strip"].fac_kind == "lu", "terminal strip must keep its LU")
@@ -1146,6 +1238,274 @@ def _transport_comparisons(
         f"LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})"
     )
     _require(err <= CG_STREAM_REL_MAX, f"BiCGStab stream difference {err:.3e}")
+
+
+def _wall(torch, fn):
+    """``fn()`` and its wall time in seconds, ended by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _field_map_kernel_row(torch, kernels, cuda_kernels, solution, grid, name):
+    """The sum behind one film's part of the field map (biot_savart_batch,
+    the film's sites -> the map's points, B = 1) against the blocked plain
+    version on the card, timed beside its bound."""
+    mesh = solution.device.meshes[name]
+    layer = solution.device.layers[solution.device.films[name].layer]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=CARD)
+
+    n, m = len(mesh.sites), len(grid)
+    positions = t(np.column_stack([mesh.sites, np.full(n, layer.z0)]))
+    targets = t(np.column_stack([grid, np.full(m, MAP_HEIGHT)]))
+    J, areas = t(solution.film_solutions[name].current_density), t(mesh.vertex_areas)
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    out = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=False)
+    _require(cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1, "field map not on the kernel")
+    abs_err, rel = _check_against_plain(
+        torch, f"field map {name}", torch.float32, out,
+        kernels.biot_savart_2d_field_plain(targets, positions, J, areas, vector=False),
+    )
+    ms = _timed(
+        torch, lambda: kernels.biot_savart_2d_field(targets, positions, J, areas, vector=False), 10
+    )
+    plain_ms = _timed(
+        torch,
+        lambda: kernels.biot_savart_2d_field_plain(targets, positions, J, areas, vector=False), 3,
+    )
+    bound = _bound("biot_savart_batch", torch.float32, m, n, 1)
+    print(
+        f"phase9 field map of {name} (biot_savart_batch, {n} sites -> {m} points, B=1, "
+        f"dz2={(MAP_HEIGHT - layer.z0) ** 2}): max_abs_err={abs_err:.3e} rel_err={rel:.3e} "
+        f"(limit {TOL['float32']:.0e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"{_bound_text(bound, ms)}"
+    )
+
+
+def _rel_to_max(a, b):
+    """Largest difference relative to max|b|."""
+    a = np.asarray(getattr(a, "magnitude", a), dtype=np.float64)
+    b = np.asarray(getattr(b, "magnitude", b), dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions):
+    """Post-processing at full width on phase 4's model (the uncut
+    27,000-site stack, float32) and its solutions; returns the launch counts
+    of the field map."""
+    device = model.device
+    solution = lu_solutions[-1]
+    films = list(device.films)
+    _require(solution.torch_device == model.torch_device, "solution not on the model's device")
+    # The triangle indices: built on the host once per mesh, shared by
+    # every solution of the device.
+    t0 = time.perf_counter()
+    for name in films:
+        device.meshes[name].spatial_index(CARD)
+    build_s = time.perf_counter() - t0
+    index = device.meshes[films[0]].spatial_index(CARD)
+    _require(solution.device.meshes[films[0]].spatial_index(CARD) is index, "index not shared")
+    print(
+        f"phase9 triangle indices of {len(films)} films "
+        f"({ {name: len(device.meshes[name].elements) for name in films} } triangles): built in "
+        f"{build_s:.3f} s; grid {index.grid_dims}, {index.cell_tris.shape[1]} candidates per cell, "
+        f"{index.tri_verts.dtype}"
+    )
+
+    # 1. The field map: one biot_savart_batch launch per film.
+    half = 1.1 * max(max(film.extents) for film in device.films.values()) / 2
+    axis = np.linspace(-half, half, MAP_SIDE)
+    grid = np.stack(np.meshgrid(axis, axis), axis=-1).reshape(-1, 2)
+    spacing = axis[1] - axis[0]
+
+    def field_map():
+        return solution.field_at_position(grid, zs=MAP_HEIGHT, with_units=False)
+
+    field_map()  # warm
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(cuda_kernels)
+    Bz, map_s = _wall(torch, field_map)
+    launches = dict(cuda_kernels.LAUNCHES)
+    print(
+        f"phase9 field_at_position on a {MAP_SIDE} x {MAP_SIDE} map at z = {MAP_HEIGHT} "
+        f"(spacing {spacing:.4f}): {map_s * 1e3:.1f} ms warm, launches {launches}, "
+        f"peak_memory_GB={torch.cuda.max_memory_allocated() / 1e9:.3f}"
+    )
+    _require(Bz.shape == (len(grid),) and np.all(np.isfinite(Bz)), "field map output")
+    _require(launches["biot_savart_batch"] >= len(films), launches)
+    for name in films:
+        _field_map_kernel_row(torch, kernels, cuda_kernels, solution, grid, name)
+    _profile(torch, lambda: _wall(torch, field_map)[1], "phase9 profile of the field map")
+
+    # 2. The vector field and the vector potential on the same map.
+    def vector_map():
+        return solution.screening_field_at_position(
+            grid, zs=MAP_HEIGHT, vector=True, with_units=False
+        )
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(cuda_kernels)
+    B3, vector_s = _wall(torch, vector_map)
+    vector_peak = torch.cuda.max_memory_allocated() / 1e9
+    _require(cuda_kernels.LAUNCHES["biot_savart_batch"] == 0, "vector field on the kernel")
+    screening = solution.screening_field_at_position(grid, zs=MAP_HEIGHT, with_units=False)
+    err_z = _rel_to_max(screening, B3[:, 2])
+    torch.cuda.reset_peak_memory_stats()
+    A, potential_s = _wall(
+        torch,
+        lambda: solution.vector_potential_at_position(grid, zs=MAP_HEIGHT, with_units=False),
+    )
+    potential_peak = torch.cuda.max_memory_allocated() / 1e9
+    _require(B3.shape == (len(grid), 3) and A.shape == (len(grid), 3), "map shapes")
+    _require(np.all(np.isfinite(B3)) and np.all(np.isfinite(A)), "non-finite map")
+    # Bz = dAy/dx - dAx/dy by central differences on the grid's interior.
+    Ax = A[:, 0].reshape(MAP_SIDE, MAP_SIDE).astype(np.float64)  # [y, x]
+    Ay = A[:, 1].reshape(MAP_SIDE, MAP_SIDE).astype(np.float64)
+    curl = (Ay[1:-1, 2:] - Ay[1:-1, :-2] - Ax[2:, 1:-1] + Ax[:-2, 1:-1]) / (2 * spacing)
+    direct = B3[:, 2].reshape(MAP_SIDE, MAP_SIDE)[1:-1, 1:-1]
+    err_curl = _rel_to_max(curl, direct)
+    print(
+        f"phase9 screening_field_at_position(vector=True) (plain route): {vector_s * 1e3:.1f} ms, "
+        f"peak_memory_GB={vector_peak:.3f}; its z-component against the kernel route "
+        f"{err_z:.3e} of its maximum (limit {TOL['float32']:.0e}); vector_potential_at_position: "
+        f"{potential_s * 1e3:.1f} ms, peak_memory_GB={potential_peak:.3f}; Bz from the curl of A "
+        f"against the summed Bz {err_curl:.3e} of its maximum (limit {CURL_TOL:.0e})"
+    )
+    _require(err_z <= TOL["float32"], f"vector z-component {err_z:.3e}")
+    _require(err_curl <= CURL_TOL, f"curl of A {err_curl:.3e}")
+
+    # 3. Interpolation at random points of the outer film.
+    name = films[0]
+    mesh = device.meshes[name]
+    rng = np.random.default_rng(99)
+    radius = 0.999 * max(device.films[name].extents) / 2 * np.sqrt(rng.uniform(0, 1, INTERP_POINTS))
+    angle = rng.uniform(0, 2 * np.pi, INTERP_POINTS)
+    pts = np.stack([radius * np.cos(angle), radius * np.sin(angle)], axis=1)
+    _require(bool(device.films[name].contains_points(pts).all()), "query outside the film")
+    fs = solution.film_solutions[name]
+    for method in ("linear", "cubic"):
+        (J, field), interp_s = _wall(
+            torch,
+            lambda: (
+                solution._interpolate(name, fs.current_density, pts, method),
+                solution.interp_field(pts, film=name, method=method),
+            ),
+        )
+        lost = int(np.isnan(field).sum() + np.isnan(J).any(axis=1).sum())
+        print(
+            f"phase9 {method} interpolation of J and the field at {INTERP_POINTS} points of "
+            f"{name}: {interp_s * 1e3:.1f} ms, {lost} queries not found (limit 0)"
+        )
+        _require(lost == 0, f"{lost} interpolation queries not found")
+        _require(J.dtype == fs.current_density.dtype, "interpolated dtype")
+    at_sites = solution.interp_field(mesh.sites, film=name, dataset="self_field")
+    err_sites = _rel_to_max(at_sites, fs.self_field)
+    print(
+        f"phase9 linear interpolant at the {len(mesh.sites)} mesh sites against the site values: "
+        f"{err_sites:.3e} of their maximum (limit {SITE_VALUE_TOL:.0e})"
+    )
+    _require(err_sites <= SITE_VALUE_TOL, f"interpolant at sites {err_sites:.3e}")
+
+    # 4. Fluxoids and fluxes of the zero-current solutions in a uniform
+    # field: linear in the field, and the same from the card and the CPU.
+    B = len(SWEEP_FIELDS)
+    swept, _ = _sweep(
+        torch, st, model=model, applied_fields=[st.sources.ConstantField(v) for v in SWEEP_FIELDS],
+        circulating_currents=[{}] * B, iterations=ITERATIONS,
+    )
+    weak, strong = swept.solution(0), swept.solution(B - 1)
+    _require(weak.device.meshes[name] is mesh, "sweep solutions do not share the mesh")
+    on_cpu = st.Solution(
+        device=device, film_solutions=strong.film_solutions,
+        applied_field_func=strong.applied_field_func, field_units=strong.field_units,
+        current_units=strong.current_units, torch_device="cpu",
+    )
+    ratio = SWEEP_FIELDS[-1] / SWEEP_FIELDS[0]
+    worst_linear = worst_cpu = 0.0
+    holes = list(device.holes)
+    for hole in holes:
+        fluxoid, fluxoid_s = _wall(torch, lambda: strong.hole_fluxoid(hole))
+        total = sum(fluxoid).to("Phi_0").magnitude
+        flux = strong.polygon_flux(hole, units="Phi_0", with_units=False)
+        small = sum(weak.hole_fluxoid(hole)).to("Phi_0").magnitude
+        cpu_total = sum(on_cpu.hole_fluxoid(hole)).to("Phi_0").magnitude
+        worst_linear = max(worst_linear, abs(small * ratio - total) / abs(total))
+        worst_cpu = max(worst_cpu, abs(cpu_total - total) / abs(total))
+        print(
+            f"phase9 {hole} at {SWEEP_FIELDS[-1]} mT without circulating currents: fluxoid "
+            f"{total:.6f} Phi_0 (flux part {fluxoid.flux_part.magnitude:.6f}, supercurrent part "
+            f"{fluxoid.supercurrent_part.magnitude:.6f}), flux through the hole {flux:.6f} Phi_0, "
+            f"{fluxoid_s * 1e3:.1f} ms"
+        )
+        _require(np.isfinite(total) and np.isfinite(flux), f"{hole} fluxoid")
+    print(
+        f"phase9 fluxoids: point {B - 1} against {ratio:.0f} x point 0 {worst_linear:.3e} (limit "
+        f"{FLUXOID_TOL:.0e}); interpolated on the card against on the CPU {worst_cpu:.3e} "
+        f"(limit {SITE_VALUE_TOL:.0e})"
+    )
+    _require(worst_linear <= FLUXOID_TOL, f"fluxoid linearity {worst_linear:.3e}")
+    _require(worst_cpu <= SITE_VALUE_TOL, f"fluxoid card against CPU {worst_cpu:.3e}")
+    _profile(
+        torch, lambda: _wall(torch, lambda: strong.hole_fluxoid(holes[0]))[1],
+        "phase9 profile of one hole fluxoid",
+    )
+    del swept, weak, strong, on_cpu
+
+    # 5. The mutual-inductance matrix in float32 and in float64 on the card.
+    matrices = {}
+    for dtype in ("float32", "float64"):
+        dev = device.copy()
+        dev.solve_dtype = dtype
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(cuda_kernels)
+        M, mutual_s = _wall(
+            torch, lambda: dev.mutual_inductance_matrix(iterations=ITERATIONS, torch_device=CARD)
+        )
+        M = np.asarray(M.magnitude)
+        matrices[dtype] = M
+        asym = float(np.abs(M - M.T).max() / np.abs(M).max())
+        print(
+            f"phase9 mutual_inductance_matrix(iterations={ITERATIONS}) in {dtype}: {mutual_s:.3f} s "
+            f"(factorization included), launches {dict(cuda_kernels.LAUNCHES)}, "
+            f"peak_memory_GB={torch.cuda.max_memory_allocated() / 1e9:.3f}, asymmetry "
+            f"|M - M^T| / max|M| = {asym:.3e}; M in pH:"
+        )
+        for row in M:
+            print("phase9   " + " ".join(f"{v:12.6f}" for v in row))
+        _require(np.all(np.isfinite(M)) and np.all(np.diag(M) > 0), "mutual inductance matrix")
+    err_m = _rel_to_max(matrices["float32"], matrices["float64"])
+    print(
+        f"phase9 mutual inductances, float32 against float64 on the card: {err_m:.3e} of max|M| "
+        f"(limit {MUTUAL_F32_TOL:.0e}; the JAX package's Huber mutual after its float64 polish: "
+        f"{JAX_MUTUAL_REL_ERR:.2e})"
+    )
+    _require(err_m <= MUTUAL_F32_TOL, f"mutual inductance f32 against f64 {err_m:.3e}")
+
+    # 6. One flux quantum in the outer ring's hole, none in the others.
+    targets = {holes[0]: 1}
+    torch.cuda.empty_cache()
+    found, fluxoid_s = _wall(
+        torch,
+        lambda: st.find_fluxoid_solution(
+            model, targets, applied_field=st.sources.ConstantField(SWEEP_FIELDS[0]),
+            iterations=ITERATIONS, torch_device=CARD,
+        ),
+    )
+    reached = {h: float(sum(found.hole_fluxoid(h)).to("Phi_0").magnitude) for h in holes}
+    worst = max(abs(reached[h] - targets.get(h, 0)) for h in holes)
+    print(
+        f"phase9 find_fluxoid_solution({targets}) at {SWEEP_FIELDS[0]} mT: {fluxoid_s:.3f} s; "
+        f"circulating currents {({h: round(float(c), 4) for h, c in found.circulating_currents.items()})} "
+        f"{found.current_units}; fluxoids reached {({h: round(v, 6) for h, v in reached.items()})} "
+        f"Phi_0, largest deviation {worst:.3e} (limit {FLUXOID_TOL:.0e})"
+    )
+    _require(worst <= FLUXOID_TOL, f"fluxoid targets missed by {worst:.3e} Phi_0")
+    return launches
 
 
 def main() -> int:
@@ -1164,7 +1524,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_kernels.load_library()
     build_s = time.perf_counter() - t0
-    print(f"torch {torch.__version__} CUDA {torch.version.cuda}; kernel build {build_s:.2f} s")
+    print(
+        f"torch {torch.__version__} CUDA {torch.version.cuda} numpy {np.__version__}; "
+        f"kernel build {build_s:.2f} s"
+    )
     t0 = time.perf_counter()
     device = four_ring_stack(st, SITES_DENSE)
     large = four_ring_stack(st, SITES_LARGE)
@@ -1176,6 +1539,7 @@ def main() -> int:
     model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
     pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
     sweep_launches = phase_sweep(torch, st, cuda_kernels, model, lu_solutions)
+    map_launches = phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions)
     del model
     phase_cg(torch, st, cuda_kernels, large, lu_solutions)
     del large, device
@@ -1188,6 +1552,7 @@ def main() -> int:
         all(transport_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")),
         transport_launches,
     )
+    _require(map_launches["biot_savart_batch"] > 0, map_launches)
     # Each kernel's launches on the path it serves: the dense solve (phase
     # 2), the low-memory solve (phase 4) and the pair-coupling solve
     # (phase 6).

@@ -125,6 +125,14 @@ class Device:
             raise ValueError(f"solve_dtype must be float32 or float64, got {dtype}.")
         self._solve_dtype = dtype
 
+    def get_polygons(self, include_terminals: bool = True) -> List[Polygon]:
+        """All polygons in the device."""
+        groups = [self.films, self.holes, self.abstract_regions]
+        polygons = [p for group in groups for p in group.values()]
+        if include_terminals:
+            polygons += [t for terms in self.terminals.values() for t in terms]
+        return polygons
+
     def polygons_by_layer(self, polygon_type: str) -> Dict[str, List[Polygon]]:
         """``{layer_name: [polygons of the given type in that layer]}`` for
         ``polygon_type`` in ``("film", "hole", "abstract", "terminal")``."""
@@ -151,8 +159,9 @@ class Device:
             for film in self.films.values()
         }
 
-    def copy(self, with_mesh: bool = True) -> "Device":
-        """Copies the device, sharing the meshes if ``with_mesh``."""
+    def copy(self, with_mesh: bool = True, copy_mesh: bool = False) -> "Device":
+        """Copies the device; with ``with_mesh`` the meshes are shared, or
+        deep-copied if ``copy_mesh``."""
         clone = Device(
             self.name,
             layers=[layer.copy() for layer in self.layers.values()],
@@ -165,8 +174,11 @@ class Device:
             length_units=self.length_units,
             solve_dtype=self.solve_dtype,
         )
-        if with_mesh:
-            clone.meshes = self.meshes
+        if with_mesh and self.meshes is not None:
+            if copy_mesh:
+                clone.meshes = {name: mesh.copy() for name, mesh in self.meshes.items()}
+            else:
+                clone.meshes = self.meshes
         return clone
 
     # -- meshing -------------------------------------------------------------
@@ -272,6 +284,185 @@ class Device:
         mesh = self.meshes[film]
         cycle = mgen.boundary_vertices(mesh.sites, mesh.elements)
         return _unwrap_terminals(cycle, mesh.sites, self.terminals.get(film, []))
+
+    # -- mutual inductance ---------------------------------------------------
+
+    def mutual_inductance_matrix(
+        self,
+        hole_polygon_mapping: Optional[Dict[str, np.ndarray]] = None,
+        units: str = "pH",
+        all_iterations: bool = False,
+        progress_bar: bool = False,
+        torch_device="cuda",
+        **solve_kwargs,
+    ):
+        """The mutual inductance matrix ``M`` of the device:
+        ``M[i, j] = Phi_i / I_j`` where ``Phi_i`` is the fluxoid of the
+        polygon enclosing hole ``i`` when unit current circulates hole ``j``.
+
+        All hole columns are solved as one ``solve_many`` batch against a
+        single factorization; with ``all_iterations`` the per-iteration
+        history comes from that same batch.  Devices with transport
+        terminals take a per-column loop over
+        :func:`superscreen_tpu_torch.solve`.
+
+        Args:
+            hole_polygon_mapping: ``{hole_name: polygon_coords}`` enclosing
+                polygons for the fluxoid calculation. Defaults to
+                auto-generated polygons.
+            units: Units for the mutual inductance.
+            all_iterations: Return matrices for all ``iterations + 1``
+                solutions instead of just the final one.
+            progress_bar: Accepted for callers of the JAX package; no
+                progress bar is shown.
+            torch_device: Where the device is factorized and solved:
+                ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+            solve_kwargs: Passed to :func:`superscreen_tpu_torch.solve`.
+        """
+        from ..fluxoid import make_fluxoid_polygons
+        from ..ops.fem import in_polygon
+
+        if hole_polygon_mapping is None:
+            hole_polygon_mapping = make_fluxoid_polygons(self)
+        for hole_name, polygon in hole_polygon_mapping.items():
+            if hole_name not in self.holes:
+                raise ValueError(
+                    f"Hole '{hole_name}' does not exist in the device."
+                )
+            if not in_polygon(polygon, self.holes[hole_name].points).all():
+                raise ValueError(
+                    f"Hole '{hole_name}' is not completely contained "
+                    f"within the given polygon."
+                )
+
+        solve_kwargs = dict(solve_kwargs)
+        solve_kwargs.pop("current_units", None)
+        solve_kwargs["progress_bar"] = False
+        iterations = solve_kwargs.get("iterations", 1)
+        # high_precision solves need float64 refinement, which the batched
+        # sweep does not provide.
+        use_batched = solve_kwargs.pop(
+            "use_batched_solver",
+            not self.terminals and not solve_kwargs.get("high_precision"),
+        )
+        # Single-layer devices have no inter-film coupling: iteration 0 is
+        # already converged.
+        n_matrices = iterations + 1 if (all_iterations and len(self.layers) > 1) else 1
+
+        hole_names = list(self.holes)
+        film_of_hole = {
+            hole.name: film
+            for film, film_holes in self.holes_by_film().items()
+            for hole in film_holes
+        }
+        unit_current = self.ureg("1 mA")
+
+        def fluxoid_column(solution) -> np.ndarray:
+            """Fluxoids of every enclosing polygon for one solution, in
+            ``units`` per unit circulating current."""
+            column = np.zeros(len(hole_names))
+            for i, name in enumerate(hole_names):
+                fluxoid = solution.polygon_fluxoid(
+                    hole_polygon_mapping[name], film=film_of_hole[name]
+                )
+                column[i] = (sum(fluxoid) / unit_current).to(units).magnitude
+            return column
+
+        matrices = np.zeros((n_matrices, len(hole_names), len(hole_names)))
+        if use_batched:
+            matrices = self._batched_mutuals(
+                matrices, hole_names, fluxoid_column, iterations, solve_kwargs, torch_device
+            )
+        else:
+            matrices = self._per_column_mutuals(
+                matrices, hole_names, fluxoid_column, solve_kwargs, torch_device
+            )
+        results = [m * self.ureg(units) for m in matrices]
+        return results if all_iterations else results[-1]
+
+    def _batched_mutuals(
+        self, matrices, hole_names, fluxoid_column, iterations, solve_kwargs, torch_device
+    ):
+        """All columns in one batched solve (one per iteration if the
+        history is requested)."""
+        from ..solver import factorize_model
+        from ..sources import ConstantField
+        from ..sweep import solve_many
+
+        model = factorize_model(device=self, current_units="mA", torch_device=torch_device)
+        want_history = len(matrices) > 1
+        sweep = solve_many(
+            model=model,
+            applied_fields=[ConstantField(0)] * len(hole_names),
+            circulating_currents=[{name: 1.0} for name in hole_names],
+            field_units=solve_kwargs.get("field_units", "mT"),
+            iterations=iterations if len(self.films) > 1 else 0,
+            keep_history=want_history,
+            torch_device=torch_device,
+        )
+        per_iteration = list(sweep) if want_history else [sweep]
+        if len(per_iteration) < len(matrices):
+            # e.g. a multi-layer device with a single film: no coupling ran,
+            # so every iteration equals the converged state.
+            per_iteration += [per_iteration[-1]] * (
+                len(matrices) - len(per_iteration)
+            )
+        for it, result in enumerate(per_iteration[-len(matrices):]):
+            for j in range(len(hole_names)):
+                matrices[it, :, j] = fluxoid_column(result.solution(j))
+        return matrices
+
+    def _per_column_mutuals(
+        self, matrices, hole_names, fluxoid_column, solve_kwargs, torch_device
+    ):
+        """Column-by-column loop over ``solve`` (used for terminal devices)."""
+        from ..solver import factorize_model, solve
+
+        model = None
+        keep = len(matrices)
+        for j, hole_name in enumerate(hole_names):
+            logger.info(
+                f"Evaluating {self.name!r} mutual inductance matrix "
+                f"column ({j + 1}/{len(hole_names)}), source = {hole_name!r}."
+            )
+            if model is None:
+                model = factorize_model(
+                    device=self,
+                    current_units="mA",
+                    circulating_currents={hole_name: "1 mA"},
+                    torch_device=torch_device,
+                )
+                I_val = model.circulating_currents[hole_name]
+            else:
+                model.set_circulating_currents({hole_name: I_val})
+            solutions = solve(model=model, torch_device=torch_device, **solve_kwargs)[-keep:]
+            for it, solution in enumerate(solutions):
+                matrices[it, :, j] = fluxoid_column(solution)
+        return matrices
+
+    def __eq__(self, other) -> bool:
+        """Same name, layers, films, holes, terminals, abstract regions and
+        length units (the meshes and the solve dtype are not compared)."""
+        if not isinstance(other, Device):
+            return False
+        if self is other:
+            return True
+
+        def key(device):
+            def ordered(group):
+                return sorted(group.values(), key=lambda p: p.name)
+
+            return (
+                device.name,
+                ordered(device.layers),
+                ordered(device.films),
+                ordered(device.holes),
+                device.terminals,
+                ordered(device.abstract_regions),
+                device.length_units,
+            )
+
+        return key(self) == key(other)
 
     def __repr__(self) -> str:
         return (

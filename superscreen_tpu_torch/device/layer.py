@@ -103,6 +103,15 @@ class Layer:
             z0=self.z0,
         )
 
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, Layer):
+            return NotImplemented
+        if self is other:
+            return True
+        mine = (self.name, self.z0, self.london_lambda, self.thickness, self.Lambda)
+        theirs = (other.name, other.z0, other.london_lambda, other.thickness, other.Lambda)
+        return all(bool(a == b) for a, b in zip(mine, theirs))
+
     def __repr__(self) -> str:
         def fmt(q):
             if q is None:

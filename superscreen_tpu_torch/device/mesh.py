@@ -5,10 +5,13 @@ operators stay in NumPy COO form on the host; the dense Brandt kernel
 ``Q`` is assembled directly on the requested torch device by
 :func:`superscreen_tpu_torch.ops.kernels.Q_matrix`, and is not cached:
 at 20k sites it is 1.6 GB in float32, and the solver keeps only what it
-derives from it.
+derives from it.  The triangle index used for interpolation
+(:meth:`Mesh.spatial_index`) is built on the host once per torch device
+and cached on the mesh, which every solution of a device shares.
 """
 
-from typing import Sequence, Tuple
+from copy import deepcopy
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +56,7 @@ class Mesh:
         self.triangle_areas = np.asarray(triangle_areas, dtype=float)
         self.triangle_centroids = self.sites[self.elements].mean(axis=1)
         self.operators = MeshOperators.from_mesh(self) if build_operators else None
+        self._spatial_index: Dict[str, object] = {}
 
     @staticmethod
     def from_triangulation(
@@ -88,6 +92,52 @@ class Mesh:
         """Indices of vertices on any mesh boundary (unordered)."""
         edges, is_boundary = mgen.get_edges(elements)
         return np.unique(edges[is_boundary])
+
+    def spatial_index(self, torch_device):
+        """Uniform-grid triangle index on ``torch_device`` for interpolation
+        (:func:`superscreen_tpu_torch.ops.interp.build_triangle_index`),
+        built on first use and cached per device.  It is float64 whatever
+        the solve dtype (see :mod:`superscreen_tpu_torch.ops.interp`)."""
+        from ..ops import interp
+
+        key = str(torch.device(torch_device))
+        if key not in self._spatial_index:
+            self._spatial_index[key] = interp.build_triangle_index(
+                self.sites, self.elements, torch_device
+            )
+        return self._spatial_index[key]
+
+    def vertex_gradient(self, values: np.ndarray) -> np.ndarray:
+        """Per-vertex gradient ``(n, 2)`` of per-vertex scalar ``values``
+        via the vertex-gradient operators (host NumPy)."""
+        ops = self.operators
+        if ops is None:
+            raise RuntimeError("Mesh was built without operators.")
+        values = np.asarray(values, dtype=float)
+        columns = [
+            np.bincount(op.rows, weights=op.vals * values[op.cols], minlength=op.shape[0])
+            for op in (ops.gradient_x, ops.gradient_y)
+        ]
+        return np.stack(columns, axis=-1)
+
+    def closest_site(self, xy: Tuple[float, float]) -> int:
+        """Index of the mesh site closest to ``(x, y)``."""
+        offsets = self.sites - np.atleast_2d(xy)
+        return int(np.einsum("ij,ij->i", offsets, offsets).argmin())
+
+    def copy(self) -> "Mesh":
+        """A deep copy: arrays and operators are copied, the cached
+        triangle indices are not carried over."""
+        clone = Mesh(
+            sites=self.sites.copy(),
+            elements=self.elements.copy(),
+            boundary_indices=self.boundary_indices.copy(),
+            vertex_areas=self.vertex_areas.copy(),
+            triangle_areas=self.triangle_areas.copy(),
+            build_operators=False,
+        )
+        clone.operators = deepcopy(self.operators)
+        return clone
 
     def smooth(self, iterations: int, build_operators: bool = True) -> "Mesh":
         """Laplacian smoothing of the interior vertices."""

@@ -2,8 +2,14 @@
 
 Counterpart of ``superscreen_tpu/ops/fem.py``.  The operators are built on
 the host with NumPy, in COO triplet form, exactly as the JAX package builds
-them; :meth:`COO.to_dense` and :meth:`COO.matvec` move them to torch
-tensors on the requested device.
+them; :meth:`COO.to_dense`, :meth:`COO.to_gather` and :meth:`COO.matvec`
+move them to torch tensors on the requested device.
+
+Sparse products run in fixed-fan-in gather form (:func:`gather_form`,
+:func:`gather_matvec`): every output row reads its own entries and sums
+them in one fixed order, so a product gives the same bits on every run.
+A scatter-add of the triplets (``index_add_``) uses atomics on a CUDA
+device, whose order of additions changes from run to run.
 """
 
 from dataclasses import dataclass
@@ -17,6 +23,9 @@ from ..device.polygon import points_in_ring
 
 __all__ = [
     "COO",
+    "gather_form",
+    "gather_matvec",
+    "gather_matvec_batch",
     "triangle_areas",
     "vertex_areas",
     "in_polygon",
@@ -24,6 +33,46 @@ __all__ = [
     "gradient_triangles_coo",
     "gradient_vertices_coo",
 ]
+
+
+def gather_form(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_rows: int, dtype, torch_device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Converts COO triplets to fixed-fan-in gather form: ``(n_rows, d)``
+    column indices and weights (``d`` the largest number of entries in a
+    row), zero-weight padded.  Entries keep their triplet order within a
+    row; duplicates stay separate entries and are summed by the product."""
+    rows = np.asarray(rows)
+    order = np.argsort(rows, kind="stable")
+    rows_s = rows[order]
+    cols_s = np.asarray(cols)[order]
+    vals_s = np.asarray(vals)[order]
+    counts = np.bincount(rows_s, minlength=n_rows)
+    d = max(int(counts.max()) if len(counts) else 0, 1)
+    idx = np.zeros((n_rows, d), dtype=np.int64)
+    w = np.zeros((n_rows, d), dtype=dtype)
+    starts = np.cumsum(counts) - counts
+    pos = np.arange(len(rows_s)) - np.repeat(starts, counts)
+    idx[rows_s, pos] = cols_s
+    w[rows_s, pos] = vals_s
+    return (
+        torch.as_tensor(idx, device=torch_device),
+        torch.as_tensor(w, device=torch_device),
+    )
+
+
+def gather_matvec(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Sparse product in gather form: ``(n_out, d)`` indices and weights
+    applied to ``x`` of shape ``(n,)`` or ``(n, k)`` (columns)."""
+    if x.ndim == 1:
+        return torch.sum(w * x[idx], dim=1)
+    return torch.sum(w[:, :, None] * x[idx], dim=1)
+
+
+def gather_matvec_batch(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Batched sparse product in gather form: ``(n_out, d)`` indices and
+    weights applied to ``g`` of shape ``(B, n)`` (rows)."""
+    return torch.sum(w[None, :, :] * g[:, idx], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -39,13 +88,16 @@ class COO:
     vals: np.ndarray
     shape: Tuple[int, int]
 
+    def to_gather(self, dtype, torch_device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The operator in gather form on ``torch_device`` (see
+        :func:`gather_form`); ``dtype`` is a NumPy float dtype."""
+        return gather_form(self.rows, self.cols, self.vals, self.shape[0], dtype, torch_device)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """``A @ x`` for a 1-d tensor ``x``, on ``x``'s device."""
-        rows = torch.as_tensor(self.rows, device=x.device)
-        cols = torch.as_tensor(self.cols, device=x.device)
-        vals = torch.as_tensor(self.vals, dtype=x.dtype, device=x.device)
-        out = torch.zeros(self.shape[0], dtype=x.dtype, device=x.device)
-        return out.index_add_(0, rows, vals * x[cols])
+        """``A @ x`` for a tensor ``x`` of shape ``(n,)`` or ``(n, k)``, on
+        ``x``'s device, in gather form (reproducible to the bit)."""
+        np_dtype = torch.empty((), dtype=x.dtype).numpy().dtype
+        return gather_matvec(*self.to_gather(np_dtype, x.device), x)
 
     def to_dense(self, dtype, torch_device) -> torch.Tensor:
         """The dense ``(rows, cols)`` tensor, assembled on ``torch_device``

@@ -1,11 +1,18 @@
 """Pairwise kernels: the Brandt kernel ``Q`` (dense, or applied
-matrix-free) and inter-film Biot-Savart coupling.
+matrix-free), inter-film Biot-Savart coupling, and the field and vector
+potential of a sheet current anywhere in space.
 
 Counterpart of ``superscreen_tpu/ops/kernels.py``.  Each public function
 dispatches on the device of its input tensors: a CPU tensor takes the
 plain PyTorch version defined here (blocked over rows), a CUDA tensor
 launches the hand-written kernel of :mod:`.cuda_kernels`, and any other
 device raises.  There is no fallback from one to the other.
+:func:`biot_savart_2d_field` and :func:`vector_potential_2d` have no kernel
+of their own (the JAX package computes them outside any Pallas kernel):
+the z-component of the field at points of one height is the
+``biot_savart_batch`` sum and takes that route; the vector field, mixed
+heights and the vector potential are blocked plain PyTorch on the tensors'
+device.
 """
 
 import os
@@ -23,6 +30,9 @@ __all__ = [
     "Q_matrix",
     "Q_apply",
     "biot_savart_film_to_film_dz2",
+    "biot_savart_film_to_film",
+    "biot_savart_2d_field",
+    "vector_potential_2d",
     "biot_savart_pair_dz2",
     "biot_savart_within_film",
     "boundary_effective_field",
@@ -226,6 +236,154 @@ def biot_savart_film_to_film_dz2(
     else:
         out = biot_savart_plain(film1_sites, film1_areas, J, film2_sites, dz2)
     return out[0] if squeeze else out
+
+
+def biot_savart_film_to_film(
+    film1_sites: torch.Tensor,
+    film1_z0: float,
+    film1_areas: torch.Tensor,
+    film1_J: torch.Tensor,
+    film2_sites: torch.Tensor,
+    film2_z0: float,
+) -> torch.Tensor:
+    """Biot-Savart field at ``film2_sites`` (z = film2_z0) from the sheet
+    current ``film1_J`` flowing at ``film1_sites`` (z = film1_z0), in
+    ``current / length`` units (see :func:`biot_savart_film_to_film_dz2`)."""
+    return biot_savart_film_to_film_dz2(
+        film1_sites, film1_areas, film1_J, film2_sites, float((film2_z0 - film1_z0) ** 2)
+    )
+
+
+def biot_savart_2d_field_plain(
+    eval_positions: torch.Tensor,
+    positions: torch.Tensor,
+    current_densities: torch.Tensor,
+    areas: torch.Tensor,
+    vector: bool = True,
+    block: int = _BLOCK,
+) -> torch.Tensor:
+    """Plain PyTorch field of a sheet current at 3D points (see
+    :func:`biot_savart_2d_field`), in blocks of evaluation rows.  Pairs
+    with ``r = 0`` contribute zero.  Each block's intermediates are freed
+    before the next, so a large map holds ``O(block * m)`` values."""
+    aJx = areas * current_densities[:, 0]
+    aJy = areas * current_densities[:, 1]
+    n = eval_positions.shape[0]
+    out = torch.empty((n, 3 if vector else 1), dtype=aJx.dtype, device=aJx.device)
+    for lo in range(0, n, block):
+        P = eval_positions[lo : lo + block]
+        dx = P[:, 0:1] - positions[None, :, 0]
+        dy = P[:, 1:2] - positions[None, :, 1]
+        dz = P[:, 2:3] - positions[None, :, 2]
+        r2 = dx * dx + dy * dy + dz * dz
+        positive = r2 > 0
+        rinv = torch.rsqrt(torch.where(positive, r2, torch.ones_like(r2)))
+        r3 = torch.where(positive, rinv * rinv * rinv, torch.zeros_like(r2))
+        out[lo : lo + block, -1] = (dy * r3) @ aJx - (dx * r3) @ aJy
+        if vector:
+            zr3 = dz * r3
+            out[lo : lo + block, 0] = zr3 @ aJy
+            out[lo : lo + block, 1] = -(zr3 @ aJx)
+            del zr3
+        del dx, dy, dz, r2, positive, rinv, r3
+    out *= _ONE_OVER_4PI
+    return out if vector else out[:, 0]
+
+
+def biot_savart_2d_field(
+    eval_positions: torch.Tensor,
+    positions: torch.Tensor,
+    current_densities: torch.Tensor,
+    areas: torch.Tensor,
+    vector: bool = True,
+) -> torch.Tensor:
+    """Magnetic field ``H`` at 3D ``eval_positions`` from a sheet current,
+    ``(1 / 4 pi) sum_j a_j J_j x (r - r_j) / |r - r_j|^3``, in
+    ``current / length`` of the inputs' units.
+
+    Unlike the JAX package's function of this name, which takes SI inputs
+    and returns tesla, the sum is formed in the caller's units (in float32
+    SI lengths put ``r^-3`` near 1e18 and areas near 1e-12) and
+    :func:`superscreen_tpu_torch.sources.biot_savart_2d` applies the one
+    scalar that makes it tesla.
+
+    With ``vector=False``, all evaluation points at one height and the
+    sheet at one height, this is the ``biot_savart_batch`` sum with
+    ``dz2 = (z - z0)^2`` and goes through
+    :func:`biot_savart_film_to_film_dz2` (the kernel on a CUDA tensor, with
+    ``O(n)`` memory).  That sum has no ``r = 0`` guard: with ``dz2 = 0`` an
+    evaluation point may sit on a sheet position, so that case takes the
+    plain version, as do mixed heights and ``vector=True``.
+
+    Args:
+        eval_positions: ``(n, 3)`` evaluation coordinates.
+        positions: ``(m, 3)`` sheet coordinates.
+        current_densities: ``(m, 2)`` sheet current density.
+        areas: ``(m,)`` effective vertex areas.
+        vector: If True returns ``(n, 3)`` (Hx, Hy, Hz); else ``(n,)`` Hz.
+    """
+    if not vector and eval_positions.shape[0] and positions.shape[0]:
+        z, z0 = eval_positions[0, 2], positions[0, 2]
+        one_height = bool(
+            torch.all(eval_positions[:, 2] == z) & torch.all(positions[:, 2] == z0)
+        )
+        dz2 = float((z - z0) ** 2)
+        if one_height and dz2 > 0:
+            return biot_savart_film_to_film_dz2(
+                positions[:, :2], areas, current_densities, eval_positions[:, :2], dz2
+            )
+    _uses_kernel(eval_positions)  # only to refuse a device that is neither cpu nor cuda
+    return biot_savart_2d_field_plain(
+        eval_positions, positions, current_densities, areas, vector=vector
+    )
+
+
+def vector_potential_2d(
+    eval_positions: torch.Tensor,
+    eval_zs: torch.Tensor,
+    positions: torch.Tensor,
+    z0: float,
+    areas: torch.Tensor,
+    J: torch.Tensor,
+    block: int = _BLOCK,
+) -> torch.Tensor:
+    """In-plane vector potential (Ax, Ay) of a sheet current:
+    ``A(r) = 1/(4 pi) int J(r') / |r - r'| d^2r'`` (without the mu_0
+    prefactor; units ``current``).  Blocked plain PyTorch on the tensors'
+    device.
+
+    An evaluation point that coincides with a sheet position (a contour
+    along a feature ring of the same film) would divide by zero; its self
+    term is dropped, as ``q_matrix`` drops its diagonal (the ``1/r``
+    singularity is integrable, so the term's continuum weight is zero).
+
+    Args:
+        eval_positions: ``(m, 2)`` evaluation coordinates.
+        eval_zs: ``(m,)`` evaluation heights.
+        positions: ``(n, 2)`` sheet coordinates.
+        z0: Sheet height.
+        areas: ``(n,)`` vertex areas.
+        J: ``(n, 2)`` sheet current density.
+
+    Returns:
+        ``(m, 2)`` vector potential (times 4 pi / mu_0).
+    """
+    _uses_kernel(eval_positions)  # only to refuse a device that is neither cpu nor cuda
+    m = eval_positions.shape[0]
+    out = torch.empty((m, 2), dtype=J.dtype, device=J.device)
+    for lo in range(0, m, block):
+        P = eval_positions[lo : lo + block]
+        dx = P[:, 0:1] - positions[None, :, 0]
+        dy = P[:, 1:2] - positions[None, :, 1]
+        dz = eval_zs[lo : lo + block, None] - z0
+        r2 = dx * dx + dy * dy + dz * dz
+        positive = r2 > 0
+        rinv = torch.where(
+            positive, torch.rsqrt(torch.where(positive, r2, torch.ones_like(r2))), torch.zeros_like(r2)
+        )
+        out[lo : lo + block] = (areas[None, :] * rinv) @ J
+        del dx, dy, dz, r2, positive, rinv
+    return _ONE_OVER_4PI * out
 
 
 def biot_savart_pair_plain(

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .fem import gather_matvec
 
 logger = logging.getLogger("solve")
 
@@ -169,8 +170,10 @@ def brandt_matvec(op: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
             ``diag (ni,)`` (the regularized Brandt diagonal, computed from
             the full site set), and the Lambda-scaled restricted Laplacian
             (plus, for an inhomogeneous Lambda, the ``(grad Lambda) . grad``
-            term) as COO triplets ``lap_rows``, ``lap_cols``, ``lap_vals``;
-            ``nonsym`` is True when that term is present.
+            term) in gather form ``lap_idx``, ``lap_w`` (``(ni, d)``, see
+            :func:`ops.fem.gather_form`: a scatter-add of triplets would
+            not be reproducible on the card); ``nonsym`` is True when that
+            term is present.
         x: ``(ni,)`` or ``(ni, B)``.
 
     Returns:
@@ -181,18 +184,16 @@ def brandt_matvec(op: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         x = x[:, None]
     wx = op["w_sub"][:, None] * x
     Ax = -kernels.q_apply(op["sub_sites"], wx) + op["diag"][:, None] * wx
-    contrib = op["lap_vals"][:, None] * x[op["lap_cols"]]
-    Ax = Ax - torch.zeros_like(Ax).index_add_(0, op["lap_rows"], contrib)
+    Ax = Ax - gather_matvec(op["lap_idx"], op["lap_w"], x)
     return Ax[:, 0] if squeeze else Ax
 
 
 def _jacobi_minv(op: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Jacobi preconditioner diagonal for ``P = A diag(1/w)``, ``(ni, 1)``."""
     w = op["w_sub"]
-    rows, cols, vals = op["lap_rows"], op["lap_cols"], op["lap_vals"]
-    lam_diag = torch.zeros_like(w).index_add_(
-        0, rows, torch.where(rows == cols, vals, torch.zeros_like(vals))
-    )
+    idx, vals = op["lap_idx"], op["lap_w"]
+    own_row = idx == torch.arange(idx.shape[0], device=idx.device)[:, None]
+    lam_diag = torch.sum(torch.where(own_row, vals, torch.zeros_like(vals)), dim=1)
     p_diag = op["diag"] - lam_diag / w
     return torch.where(p_diag.abs() > 0, 1.0 / p_diag, torch.ones_like(p_diag))[:, None]
 

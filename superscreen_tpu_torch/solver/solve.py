@@ -11,6 +11,7 @@ returns one :class:`Solution` per round.
 import contextlib
 import copy
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -267,7 +268,13 @@ def solve(
     vortices: Optional[Sequence[Vortex]] = None,
     field_units: str = "mT",
     current_units: str = "uA",
+    check_inversion: bool = False,
     iterations: int = 0,
+    return_solutions: bool = True,
+    save_path: Optional[os.PathLike] = None,
+    log_level: Optional[int] = None,
+    progress_bar: bool = True,
+    high_precision: bool = False,
     coupling: str = "auto",
     torch_device="cuda",
 ) -> List[Solution]:
@@ -288,7 +295,18 @@ def solve(
         vortices: Vortices in the device.
         field_units: Units of the applied field (H or B).
         current_units: Units for currents.
+        check_inversion: Verify the solves against a float64 system; not
+            supported yet (must be False).
         iterations: Number of self-consistent coupling rounds.
+        return_solutions: Must be True: the solutions are not saved, so
+            they are always returned.
+        save_path: HDF5 path for incremental saving; not supported yet
+            (must be None).
+        log_level: Logging level, handed to ``logging.basicConfig``.
+        progress_bar: Accepted for callers of the JAX package; the coupling
+            rounds show no progress bar.
+        high_precision: Float64 refinement around the float32
+            factorizations; not supported yet (must be False).
         coupling: ``"exact"`` or ``"auto"`` (which means exact here);
             ``"fft"`` is not supported yet.
         torch_device: ``"cuda"`` (default; raises without a card) or
@@ -298,6 +316,18 @@ def solve(
         A list of ``iterations + 1`` Solutions for a multi-film device
         with ``iterations >= 1``, else one Solution.
     """
+    if log_level is not None:
+        logging.basicConfig(level=log_level)
+    if check_inversion or high_precision:
+        raise NotImplementedError(
+            "check_inversion and high_precision need the float64 systems of "
+            "solver/refine.py, which are not ported yet (ROADMAP item 2, certify and refine)."
+        )
+    if save_path is not None or not return_solutions:
+        raise NotImplementedError(
+            "save_path and return_solutions=False need Solution.to_hdf5, which is not "
+            "ported yet (ROADMAP item 9, host conveniences)."
+        )
     if coupling == "fft":
         raise NotImplementedError("coupling='fft' is not supported yet; use 'exact'.")
     if coupling not in ("auto", "exact"):
@@ -383,6 +413,7 @@ def solve(
                 circulating_currents=model.circulating_currents,
                 terminal_currents=model.terminal_currents,
                 vortices=[v for vs in model.vortices.values() for v in vs],
+                torch_device=torch_device,
             )
         )
     return solutions

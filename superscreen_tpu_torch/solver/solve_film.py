@@ -34,6 +34,7 @@ import torch
 
 from ..device import Device
 from ..ops import kernels, linalg
+from ..ops.fem import COO
 from .utils import FilmInfo, stream_from_terminal_current
 
 __all__ = [
@@ -159,11 +160,13 @@ def _lowmem_grad_lambda_triplets(info: FilmInfo, ix: np.ndarray):
     return tuple(np.concatenate(axis) for axis in zip(*parts))
 
 
-def _restricted_lambda_triplets(info: FilmInfo, ix: np.ndarray, torch_device):
-    """COO triplets, in the numbering of ``ix``, of the Lambda terms
-    restricted to ``ix``, on ``torch_device``: the Laplacian with each
-    column scaled by its Lambda plus, for an inhomogeneous film, the
-    ``(grad Lambda) . grad`` term (both are subtracted from ``A``)."""
+def _restricted_lambda_triplets(info: FilmInfo, ix: np.ndarray) -> COO:
+    """The Lambda terms restricted to ``ix``, in the numbering of ``ix``, as
+    a coalesced host COO operator in the solve dtype: the Laplacian with
+    each column scaled by its Lambda plus, for an inhomogeneous film, the
+    ``(grad Lambda) . grad`` term (both are subtracted from ``A``).  Entries
+    that share a position are summed here, on the host, so that neither the
+    scatter into ``A`` nor the gather form has duplicates."""
     lap = info.laplacian
     Lambda = info.lambda_info.Lambda[:, 0]
     pos = np.full(lap.shape[0], -1, dtype=np.int64)
@@ -176,11 +179,8 @@ def _restricted_lambda_triplets(info: FilmInfo, ix: np.ndarray, torch_device):
         rows = np.concatenate([rows, g_rows])
         cols = np.concatenate([cols, g_cols])
         vals = np.concatenate([vals, g_vals])
-    return (
-        torch.as_tensor(rows, device=torch_device),
-        torch.as_tensor(cols, device=torch_device),
-        torch.as_tensor(vals.astype(info.sites.dtype), device=torch_device),
-    )
+    op = COO(rows, cols, vals, (len(ix), len(ix))).coalesce()
+    return COO(op.rows, op.cols, op.vals.astype(info.sites.dtype), op.shape)
 
 
 def _lowmem_diag(info: FilmInfo, sites: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
@@ -204,7 +204,8 @@ def _build_system_2d_lowmem(info: FilmInfo, ix: np.ndarray, sites: torch.Tensor)
     A.neg_()
     A.diagonal().copy_(diag)
     A.mul_(info.weights[ix_t][None, :])
-    rows, cols, vals = _restricted_lambda_triplets(info, ix, sites.device)
+    op = _restricted_lambda_triplets(info, ix)
+    rows, cols, vals = (torch.as_tensor(a, device=sites.device) for a in (op.rows, op.cols, op.vals))
     return A.index_put_((rows, cols), -vals, accumulate=True)
 
 
@@ -215,14 +216,15 @@ def _lowmem_operator_pieces(info: FilmInfo, ix: np.ndarray, sites: torch.Tensor)
     the ``(grad Lambda) . grad`` term too and the operator is mildly
     non-symmetric: ``nonsym`` sends its solves to BiCGStab."""
     ix_t = torch.as_tensor(ix, device=sites.device)
-    rows, cols, vals = _restricted_lambda_triplets(info, ix, sites.device)
+    lap_idx, lap_w = _restricted_lambda_triplets(info, ix).to_gather(
+        info.sites.dtype, sites.device
+    )
     return {
         "sub_sites": sites[ix_t].contiguous(),
         "w_sub": info.weights[ix_t],
         "diag": _lowmem_diag(info, sites, ix_t),
-        "lap_rows": rows,
-        "lap_cols": cols,
-        "lap_vals": vals,
+        "lap_idx": lap_idx,
+        "lap_w": lap_w,
         "nonsym": bool(info.lambda_info.inhomogeneous),
     }
 

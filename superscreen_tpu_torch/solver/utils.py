@@ -43,6 +43,7 @@ __all__ = [
     "stream_from_terminal_current",
     "current_to_float",
     "currents_to_floats",
+    "convert_field",
     "field_conversion_factor",
     "torch_dtype",
 ]
@@ -301,6 +302,51 @@ def currents_to_floats(currents: Dict, ureg, current_units: str) -> Dict[str, fl
         key: current_to_float(value, ureg, current_units)
         for key, value in currents.items()
     }
+
+
+def convert_field(
+    value,
+    new_units,
+    old_units=None,
+    ureg=None,
+    with_units: bool = True,
+):
+    """Converts between magnetic field H [current/length] and flux density
+    B = mu0*H units, inserting the factor of mu0 when the dimensionalities
+    differ.
+
+    Args:
+        value: Array/float (with ``old_units``), unit string, or Quantity.
+        new_units: Target units.
+        old_units: Units of ``value`` if it is a bare number/array.
+        ureg: The unit registry to use.
+        with_units: Return a Quantity instead of a bare magnitude.
+    """
+    ureg = ureg or default_ureg
+    if isinstance(value, str):
+        value = ureg(value)
+    if isinstance(value, Quantity):
+        old_units = value.units
+    elif old_units is None:
+        raise ValueError(
+            "Old units must be specified if value is not a string or Quantity."
+        )
+    else:
+        if isinstance(old_units, str):
+            old_units = ureg(old_units).units
+        value = Quantity(value, old_units)
+    if isinstance(new_units, str):
+        new_units = ureg(new_units).units
+    try:
+        out = value.to(new_units)
+    except DimensionalityError:
+        # Bridge H <-> B with one factor of mu0.  H carries a [length] in
+        # its dimensionality ([current]/[length]); B does not.
+        if "[length]" in dict(old_units.dimensionality):
+            out = (value * ureg("mu_0")).to(new_units)
+        else:
+            out = (value / ureg("mu_0")).to(new_units)
+    return out if with_units else out.magnitude
 
 
 def field_conversion_factor(

@@ -19,7 +19,7 @@ torch device; results come back to the host once per quantity.
 import logging
 import os
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ import torch
 from .geometry import close_curve, path_vectors
 from .ops import kernels
 from .ops import linalg
+from .ops.fem import gather_matvec_batch
 from .solution import FilmSolution, Solution, Vortex
 from .sources import ConstantField
 
@@ -112,34 +113,6 @@ class FilmSweepData:
     gty_w: Optional[torch.Tensor] = None
 
 
-def _coo_to_gather(coo, n_rows: int, dtype, torch_device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Converts COO triplets to fixed-fan-in gather form: ``(n_rows, d)``
-    column indices and weights, zero-weight padded."""
-    rows = np.asarray(coo.rows)
-    order = np.argsort(rows, kind="stable")
-    rows_s = rows[order]
-    cols_s = np.asarray(coo.cols)[order]
-    vals_s = np.asarray(coo.vals)[order]
-    counts = np.bincount(rows_s, minlength=n_rows)
-    d = int(counts.max()) if len(counts) else 1
-    idx = np.zeros((n_rows, d), dtype=np.int64)
-    w = np.zeros((n_rows, d), dtype=dtype)
-    starts = np.cumsum(counts) - counts
-    pos = np.arange(len(rows_s)) - np.repeat(starts, counts)
-    idx[rows_s, pos] = cols_s
-    w[rows_s, pos] = vals_s
-    return (
-        torch.as_tensor(idx, device=torch_device),
-        torch.as_tensor(w, device=torch_device),
-    )
-
-
-def _gather_matvec_batch(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Batched sparse matvec in gather form: ``(n_out, d)`` indices and
-    weights applied to ``g`` of shape ``(B, n)``."""
-    return torch.sum(w[None, :, :] * g[:, idx], dim=-1)
-
-
 def vortex_flux_quantum(device, current_units: str) -> float:
     """``Phi_0 / mu_0`` in ``current_units * length_units``: the strength
     of a one-quantum vortex source."""
@@ -220,9 +193,8 @@ def _terminal_fields(model, film_name: str) -> Dict[str, object]:
         model.device, info, model.terminal_systems[film_name], info.terminal_currents or {}
     )
     ha = _terminal_boundary_ha(mesh.sites, info.boundary_indices, g_tr, w)
-    m_tri = len(mesh.triangle_areas)
-    gtx_idx, gtx_w = _coo_to_gather(mesh.operators.gradient_tri_x, m_tri, dtype, w.device)
-    gty_idx, gty_w = _coo_to_gather(mesh.operators.gradient_tri_y, m_tri, dtype, w.device)
+    gtx_idx, gtx_w = mesh.operators.gradient_tri_x.to_gather(dtype, w.device)
+    gty_idx, gty_w = mesh.operators.gradient_tri_y.to_gather(dtype, w.device)
     return dict(
         terminal=True,
         g_offset=torch.as_tensor(g_tr.astype(dtype), device=w.device),
@@ -266,8 +238,8 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
             hole_ha[k] = -A_hole
         else:
             hole_ha[k] = -(A_hole @ torch.ones(len(idx), dtype=w.dtype, device=torch_device))
-    gx_idx, gx_w = _coo_to_gather(mesh.operators.gradient_x, n, dtype, torch_device)
-    gy_idx, gy_w = _coo_to_gather(mesh.operators.gradient_y, n, dtype, torch_device)
+    gx_idx, gx_w = mesh.operators.gradient_x.to_gather(dtype, torch_device)
+    gy_idx, gy_w = mesh.operators.gradient_y.to_gather(dtype, torch_device)
     terminal = film_name in device.terminals
     Qw = None
     if info.dense_kernel and not terminal:
@@ -325,8 +297,8 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     film with terminals is nonzero on its boundary, so its self-field is
     the in-film Biot-Savart sum over triangle-centroid currents."""
     if data.terminal:
-        Jtx = _gather_matvec_batch(data.gty_idx, data.gty_w, g)
-        Jty = -_gather_matvec_batch(data.gtx_idx, data.gtx_w, g)
+        Jtx = gather_matvec_batch(data.gty_idx, data.gty_w, g)
+        Jty = -gather_matvec_batch(data.gtx_idx, data.gtx_w, g)
         return kernels.biot_savart_within_film(
             data.sites, data.tri_centroids, data.tri_areas, torch.stack([Jtx, Jty], dim=-1)
         )
@@ -387,8 +359,8 @@ def _solve_film_batch(
         gf = gf + _vortex_term(data, vortex_flux)
     # The interior indices are unique, so the scatter-add is exact.
     g = g0.index_add(1, data.interior, gf.T)
-    Jx = _gather_matvec_batch(data.gy_idx, data.gy_w, g)
-    Jy = -_gather_matvec_batch(data.gx_idx, data.gx_w, g)
+    Jx = gather_matvec_batch(data.gy_idx, data.gy_w, g)
+    Jy = -gather_matvec_batch(data.gx_idx, data.gx_w, g)
     return g, torch.stack([Jx, Jy], dim=-1)
 
 
@@ -633,6 +605,7 @@ class SweepResult:
             terminal_currents=terminal,
             vortices=vortices,
             solver="superscreen_tpu_torch.solve_many",
+            torch_device=self.model.torch_device,
         )
 
     def solutions(self) -> List[Solution]:
@@ -907,11 +880,11 @@ def solve_many(
     if final_refine:
         raise NotImplementedError(
             "final_refine > 0 needs the float64 polish of certify.refine_sweep_f64, "
-            "which is not ported yet (ROADMAP item 6, certify and refine)."
+            "which is not ported yet (ROADMAP item 2, certify and refine)."
         )
     if coupling == "fft":
         raise NotImplementedError(
-            "coupling='fft' is not ported yet (ROADMAP item 5, FFT coupling); use 'exact'."
+            "coupling='fft' is not ported yet (ROADMAP item 4, FFT coupling); use 'exact'."
         )
     if coupling not in ("auto", "exact"):
         raise ValueError(f"coupling must be 'auto' or 'exact' (got {coupling!r}).")

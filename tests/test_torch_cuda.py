@@ -441,3 +441,174 @@ def test_transport_sweep_on_the_card_matches_cpu_float64(cuda):
     assert np.abs(gpu.streams["strip"] - cpu.streams["strip"]).max() <= 1e-4 * np.abs(
         cpu.streams["strip"]
     ).max()
+
+
+# -- post-processing on the card -----------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_field_at_one_height_takes_the_batch_kernel(cuda, dtype):
+    """Hz of a sheet at points of one height is one biot_savart_batch
+    launch and equals the blocked plain sum on the card; the vector field,
+    mixed heights and dz2 = 0 with a point on a sheet position launch none."""
+    rng = np.random.default_rng(61)
+    n, m = 3001, 1777
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    positions = t(np.column_stack([rng.uniform(-5, 5, (n, 2)), np.full(n, 0.5)]))
+    targets = t(np.column_stack([rng.uniform(-6, 6, (m, 2)), np.full(m, 1.25)]))
+    J, areas = t(rng.standard_normal((n, 2))), t(rng.uniform(0.01, 0.02, n))
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    out = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=False)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1
+    ref = kernels.biot_savart_2d_field_plain(targets, positions, J, areas, vector=False)
+    assert out.shape == (m,) and _rel_err(out, ref) <= TOL[dtype]
+    vec = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=True)
+    assert vec.shape == (m, 3) and _rel_err(vec[:, 2], ref) <= TOL[dtype]
+    mixed = targets.clone()
+    mixed[::2, 2] += 0.5
+    kernels.biot_savart_2d_field(mixed, positions, J, areas, vector=False)
+    in_plane = targets.clone()
+    in_plane[:, 2] = 0.5
+    in_plane[:7, :2] = positions[:7, :2]
+    flat = kernels.biot_savart_2d_field(in_plane, positions, J, areas, vector=False)
+    assert bool(torch.isfinite(flat).all())
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1
+    cpu = kernels.biot_savart_2d_field(
+        *(a.cpu() for a in (in_plane, positions, J, areas)), vector=False
+    )
+    assert _rel_err(flat.cpu(), cpu) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vector_potential_on_the_card_matches_cpu(cuda, dtype):
+    rng = np.random.default_rng(67)
+    n, m = 2500, 3000
+    arrays = (
+        rng.uniform(-6, 6, (m, 2)), rng.uniform(0.5, 2.0, m), rng.uniform(-5, 5, (n, 2)),
+        rng.uniform(0.01, 0.02, n), rng.standard_normal((n, 2)),
+    )
+    xy, z, sites, areas, J = (torch.as_tensor(a, dtype=dtype) for a in arrays)
+    cpu = kernels.vector_potential_2d(xy, z, sites, 0.25, areas, J)
+    gpu = kernels.vector_potential_2d(
+        *(a.to(cuda) for a in (xy, z, sites)), 0.25, areas.to(cuda), J.to(cuda)
+    )
+    assert gpu.shape == (m, 2) and _rel_err(gpu.cpu(), cpu) <= TOL[dtype]
+
+
+def test_gather_form_on_the_card_equals_the_scatter_add_and_is_reproducible(cuda):
+    from superscreen_tpu_torch.ops import fem
+
+    rng = np.random.default_rng(71)
+    n, nnz = 20000, 140000
+    rows, cols = rng.integers(0, n, nnz), rng.integers(0, n, nnz)
+    vals = rng.standard_normal(nnz)
+    op = fem.COO(rows, cols, vals, (n, n))
+    x = torch.as_tensor(rng.standard_normal((n, 8)), device=cuda)
+    got = op.matvec(x)
+    t_rows, t_cols = torch.as_tensor(rows, device=cuda), torch.as_tensor(cols, device=cuda)
+    expected = torch.zeros_like(x).index_add_(
+        0, t_rows, torch.as_tensor(vals, device=cuda)[:, None] * x[t_cols]
+    )
+    assert _rel_err(got, expected) <= 1e-14
+    for _ in range(3):
+        assert torch.equal(op.matvec(x), got)
+
+
+def _ring_with_a_weak_spot(sites):
+    def weak_spot(x, y, sigma=2.0):
+        return 0.5 * (1 + 0.5 * np.exp(-((x + 3) ** 2 + (y - 4) ** 2) / (2 * sigma**2)))
+
+    device = st.Device(
+        "ring", layers=[st.Layer("top", Lambda=st.Parameter(weak_spot), z0=1)],
+        films=[st.Polygon("ring", layer="top", points=st.geometry.circle(7.0, points=60))],
+        holes=[st.Polygon("ring_hole", layer="top", points=st.geometry.circle(3.0, points=30))],
+    )
+    device.make_mesh(min_points=sites)
+    return device
+
+
+def test_two_bicgstab_runs_are_bitwise_equal(cuda, monkeypatch):
+    """The matrix-free BiCGStab route of a low-memory film with an
+    inhomogeneous Lambda: two factorizations and sweeps give the same
+    iteration count and the same bits (its sparse products are in gather
+    form, not atomic scatter-adds)."""
+    from superscreen_tpu_torch.ops import linalg
+
+    monkeypatch.setattr(st.solver.utils, "MAX_DENSE_KERNEL_SIZE", 10)
+    monkeypatch.setenv("SUPERSCREEN_TPU_LARGE_FACTOR", "cg")
+    device = _ring_with_a_weak_spot(4000)
+    runs = []
+    for _ in range(2):
+        linalg.CG_STATS.update(solves=0, iterations=0, max_residual=0.0)
+        model = st.factorize_model(device=device, current_units="uA", torch_device="cuda")
+        assert model.film_data["ring"].fac_kind == "bicgstab"
+        result = st.solve_many(
+            model=model, applied_fields=[st.sources.ConstantField(v) for v in (0.1, 0.4)],
+            circulating_currents=[{"ring_hole": 1.0}, {"ring_hole": -2.0}], torch_device="cuda",
+        )
+        runs.append((linalg.CG_STATS["iterations"], result.streams["ring"], result.self_fields["ring"]))
+    assert runs[0][0] == runs[1][0] > 0
+    assert np.array_equal(runs[0][1], runs[1][1]) and np.array_equal(runs[0][2], runs[1][2])
+
+
+def test_post_processing_on_the_card_matches_cpu(cuda):
+    """A float32 solve on the card, post-processed on the card and, from the
+    same arrays, on the CPU: interpolation (float64 point location on
+    both), a current through a path, fluxoids, field maps and the vector
+    potential."""
+    device = _two_films(2500, "float32")
+    gpu = st.solve(
+        device, applied_field=st.sources.ConstantField(0.2),
+        circulating_currents={"big_hole": "5 uA"}, iterations=2, torch_device="cuda",
+    )[-1]
+    assert gpu.torch_device == torch.device("cuda", torch.cuda.current_device())
+    cpu = st.Solution(
+        device=device, film_solutions=gpu.film_solutions,
+        applied_field_func=gpu.applied_field_func, field_units=gpu.field_units,
+        current_units=gpu.current_units, circulating_currents=gpu.circulating_currents,
+        torch_device="cpu",
+    )
+    rng = np.random.default_rng(73)
+    pts = rng.uniform(-7, 7, (5000, 2))
+
+    def close(a, b, tol):
+        a = np.asarray(getattr(a, "magnitude", a), dtype=float)
+        b = np.asarray(getattr(b, "magnitude", b), dtype=float)
+        return np.abs(a - b).max() <= tol * np.abs(b).max()
+
+    for method in ("linear", "cubic"):
+        assert close(gpu.interp_current_density(pts, film="big", method=method),
+                     cpu.interp_current_density(pts, film="big", method=method), 1e-6)
+        a = gpu.interp_field(pts, film="small", method=method)
+        b = cpu.interp_field(pts, film="small", method=method)
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        assert close(np.nan_to_num(a), np.nan_to_num(b), 1e-6)
+    path = np.stack([np.linspace(3.8, 7.4, 401), np.zeros(401)], axis=1)
+    assert close(gpu.current_through_path(path, film="big"),
+                 cpu.current_through_path(path, film="big"), 1e-6)
+    for hole in ("big_hole", "small_hole"):
+        assert close(sum(gpu.hole_fluxoid(hole)), sum(cpu.hole_fluxoid(hole)), 1e-6)
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    field = gpu.field_at_position(pts, zs=2.0)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 2
+    assert close(field, cpu.field_at_position(pts, zs=2.0), 1e-5)
+    assert close(gpu.screening_field_at_position(pts, zs=2.0, vector=True),
+                 cpu.screening_field_at_position(pts, zs=2.0, vector=True), 1e-5)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 2
+    assert close(gpu.vector_potential_at_position(pts, zs=2.0),
+                 cpu.vector_potential_at_position(pts, zs=2.0), 1e-5)
+
+
+def test_mutual_inductance_on_the_card_matches_cpu_float64(cuda):
+    device = _two_films(2000, "float32")
+    cpu_device = device.copy()
+    cpu_device.solve_dtype = "float64"
+    gpu = device.mutual_inductance_matrix(iterations=3).magnitude
+    cpu = cpu_device.mutual_inductance_matrix(iterations=3, torch_device="cpu").magnitude
+    assert np.abs(gpu - cpu).max() <= 1e-3 * np.abs(cpu).max()
+    solution = st.find_fluxoid_solution(device, {"big_hole": 1}, iterations=3)
+    fluxoids = {h: sum(solution.hole_fluxoid(h)).to("Phi_0").magnitude for h in device.holes}
+    assert abs(fluxoids["big_hole"] - 1) < 1e-3 and abs(fluxoids["small_hole"]) < 1e-3

@@ -382,3 +382,160 @@ def test_partial_shapes_follow_the_library_geometry(monkeypatch):
     monkeypatch.setattr(cuda_kernels, "_geometry", lambda k, d, c: (1024, 64))
     shapes = cuda_kernels._partial_shapes("biot_savart_pair", torch.float32, 27298, 27298, 2, 132)
     assert shapes[1] == (27, 2, 27298)
+
+
+# -- the field of a sheet current anywhere in space ----------------------------
+
+
+def _sheet_tensors(n, m, seed, z=0.6, z0=0.1, on_site=0):
+    """A sheet of ``n`` positions at height ``z0`` and ``m`` evaluation
+    points at height ``z``, the first ``on_site`` of them on sheet
+    positions."""
+    rng = np.random.default_rng(seed)
+    positions = np.column_stack([rng.uniform(-3, 3, (n, 2)), np.full(n, z0)])
+    targets = np.column_stack([rng.uniform(-4, 4, (m, 2)), np.full(m, z)])
+    targets[:on_site, :2] = positions[:on_site, :2]
+    J = rng.standard_normal((n, 2))
+    areas = rng.uniform(0.05, 0.2, n)
+    return tuple(torch.as_tensor(a) for a in (targets, positions, J, areas))
+
+
+def test_field_at_one_height_takes_the_biot_savart_batch_route(monkeypatch):
+    """Hz at points of one height equals the blocked plain sum, and goes
+    through biot_savart_film_to_film_dz2 with dz2 = (z - z0)^2."""
+    targets, positions, J, areas = _sheet_tensors(150, 70, seed=31)
+    calls = []
+    routed = kernels.biot_savart_film_to_film_dz2
+
+    def spy(*args):
+        calls.append(args[-1])
+        return routed(*args)
+
+    monkeypatch.setattr(kernels, "biot_savart_film_to_film_dz2", spy)
+    out = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=False)
+    ref = kernels.biot_savart_2d_field_plain(targets, positions, J, areas, vector=False)
+    assert calls == [pytest.approx(0.25)]
+    assert out.shape == (70,)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=1e-12 * float(ref.abs().max()))
+    # The z-component of the vector field is the same sum (plain route).
+    vec = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=True)
+    assert calls == [pytest.approx(0.25)] and vec.shape == (70, 3)
+    np.testing.assert_allclose(vec[:, 2].numpy(), ref.numpy(), rtol=0, atol=1e-12 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["in_plane_on_sites", "mixed_heights", "tilted_sheet"])
+def test_field_cases_that_take_the_plain_route(monkeypatch, case):
+    """dz2 = 0 (an evaluation point may sit on a sheet position, whose pair
+    must contribute zero), mixed evaluation heights and a sheet that is not
+    flat all bypass the unguarded biot_savart_batch sum."""
+    targets, positions, J, areas = _sheet_tensors(
+        120, 40, seed=37, z=0.1 if case == "in_plane_on_sites" else 0.6, on_site=6
+    )
+    if case == "mixed_heights":
+        targets[::2, 2] += 0.3
+    if case == "tilted_sheet":
+        positions[::3, 2] -= 0.05
+
+    def refuse(*args):
+        raise AssertionError("the unguarded sum must not be used here")
+
+    monkeypatch.setattr(kernels, "biot_savart_film_to_film_dz2", refuse)
+    out = kernels.biot_savart_2d_field(targets, positions, J, areas, vector=False)
+    assert bool(torch.isfinite(out).all())
+    # Against the JAX function, which takes SI inputs and returns tesla: in
+    # one system of units the two differ by mu_0.
+    expected = np.asarray(
+        jkernels.biot_savart_2d_field(
+            targets.numpy(), positions.numpy(), J.numpy(), areas.numpy(), vector=False
+        )
+    ) / 1.25663706212e-06
+    np.testing.assert_allclose(out.numpy(), expected, rtol=0, atol=1e-12 * np.abs(expected).max())
+
+
+def test_vector_potential_matches_jax_and_drops_the_self_term():
+    targets, positions, J, areas = _sheet_tensors(130, 50, seed=41, z=0.1, on_site=5)
+    out = kernels.vector_potential_2d(
+        targets[:, :2], targets[:, 2], positions[:, :2], 0.1, areas, J, block=16
+    )
+    expected = np.asarray(
+        jkernels.vector_potential_2d(
+            targets[:, :2].numpy(), targets[:, 2].numpy(), positions[:, :2].numpy(), 0.1,
+            areas.numpy(), J.numpy(),
+        )
+    )
+    assert out.shape == (50, 2) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.numpy(), expected, rtol=0, atol=1e-12 * np.abs(expected).max())
+
+
+def test_biot_savart_film_to_film_matches_jax():
+    targets, positions, J, areas = _sheet_tensors(110, 60, seed=43)
+    out = kernels.biot_savart_film_to_film(
+        positions[:, :2], 0.1, areas, J, targets[:, :2], 0.6
+    )
+    expected = np.asarray(
+        jkernels.biot_savart_film_to_film(
+            positions[:, :2].numpy(), 0.1, areas.numpy(), J.numpy(), targets[:, :2].numpy(), 0.6
+        )
+    )
+    np.testing.assert_allclose(out.numpy(), expected, rtol=0, atol=1e-12 * np.abs(expected).max())
+
+
+# -- sparse products in gather form --------------------------------------------
+
+
+@pytest.mark.parametrize("columns", [None, 1, 5])
+def test_gather_form_equals_the_scatter_add(columns):
+    """The fixed-fan-in gather form of a COO operator (duplicates, empty
+    rows and all) against the ``index_add_`` product it replaces."""
+    from superscreen_tpu_torch.ops import fem
+
+    rng = np.random.default_rng(47)
+    n_rows, n_cols, nnz = 90, 70, 600
+    rows = rng.integers(0, n_rows - 5, nnz)  # the last rows stay empty
+    cols = rng.integers(0, n_cols, nnz)
+    vals = rng.standard_normal(nnz)
+    op = fem.COO(rows, cols, vals, (n_rows, n_cols))
+    x = torch.as_tensor(rng.standard_normal(n_cols if columns is None else (n_cols, columns)))
+    contrib = torch.as_tensor(vals)[(...,) + (None,) * (x.ndim - 1)] * x[torch.as_tensor(cols)]
+    expected = torch.zeros((n_rows,) + x.shape[1:], dtype=x.dtype).index_add_(
+        0, torch.as_tensor(rows), contrib
+    )
+    got = op.matvec(x)
+    assert got.shape == expected.shape
+    np.testing.assert_allclose(got.numpy(), expected.numpy(), rtol=0,
+                               atol=1e-14 * float(expected.abs().max()))
+    idx, w = op.to_gather(np.float64, "cpu")
+    assert idx.shape == w.shape and idx.shape[0] == n_rows
+    batch = fem.gather_matvec_batch(idx, w, x.reshape(n_cols, -1).T.contiguous())
+    np.testing.assert_allclose(batch.T.numpy().reshape(expected.shape), expected.numpy(), rtol=0,
+                               atol=1e-14 * float(expected.abs().max()))
+    assert torch.equal(op.matvec(x), got)
+
+
+def test_brandt_matvec_and_jacobi_diagonal_in_gather_form():
+    """The matrix-free operator's Lambda term and its Jacobi diagonal, in
+    gather form, against the dense matrix built from the same triplets."""
+    from superscreen_tpu_torch.ops import fem, linalg
+
+    rng = np.random.default_rng(53)
+    ni = 60
+    sites = torch.as_tensor(rng.uniform(-2, 2, (ni, 2)))
+    w = torch.as_tensor(rng.uniform(0.05, 0.1, ni))
+    diag = torch.as_tensor(rng.uniform(5, 6, ni))
+    rows = np.concatenate([rng.integers(0, ni, 300), np.arange(ni)])
+    cols = np.concatenate([rng.integers(0, ni, 300), np.arange(ni)])
+    lam = fem.COO(rows, cols, rng.standard_normal(len(rows)), (ni, ni)).coalesce()
+    lap_idx, lap_w = lam.to_gather(np.float64, "cpu")
+    op = dict(sub_sites=sites, w_sub=w, diag=diag, lap_idx=lap_idx, lap_w=lap_w, nonsym=True)
+    dense = (-kernels.q_matrix(sites) + torch.diag(diag)) * w[None, :] - lam.to_dense(
+        torch.float64, "cpu"
+    )
+    x = torch.as_tensor(rng.standard_normal((ni, 3)))
+    np.testing.assert_allclose(
+        linalg.brandt_matvec(op, x).numpy(), (dense @ x).numpy(), rtol=0,
+        atol=1e-12 * float((dense @ x).abs().max()),
+    )
+    p_diag = (dense / w[None, :]).diagonal()
+    np.testing.assert_allclose(
+        linalg._jacobi_minv(op)[:, 0].numpy(), (1.0 / p_diag).numpy(), rtol=1e-12
+    )

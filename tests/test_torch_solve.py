@@ -190,12 +190,51 @@ def test_cuda_without_a_card_raises():
          NotImplementedError),
         (lambda d: st.solve(d, torch_device="meta"), ValueError),
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
+        (lambda d: st.solve(d, check_inversion=True, torch_device="cpu"), NotImplementedError),
+        (lambda d: st.solve(d, high_precision=True, torch_device="cpu"), NotImplementedError),
+        (lambda d: st.solve(d, save_path="out.h5", torch_device="cpu"), NotImplementedError),
+        (lambda d: st.solve(d, return_solutions=False, torch_device="cpu"), NotImplementedError),
     ],
 )
 def test_unsupported_options_raise(call, error):
     ref, _ = _quickstart()
     with pytest.raises(error):
         call(st.device_from_reference(ref))
+
+
+@pytest.mark.parametrize(
+    "kwargs, item",
+    [
+        (dict(check_inversion=True), "ROADMAP item 2"),
+        (dict(high_precision=True), "ROADMAP item 2"),
+        (dict(save_path="out.h5"), "ROADMAP item 9"),
+        (dict(return_solutions=False), "ROADMAP item 9"),
+    ],
+)
+def test_unported_solve_arguments_name_their_roadmap_item(kwargs, item):
+    ref, _ = _quickstart()
+    with pytest.raises(NotImplementedError, match=item):
+        st.solve(st.device_from_reference(ref), torch_device="cpu", **kwargs)
+
+
+def test_solve_accepts_every_argument_of_the_reference_at_its_default():
+    """The arguments of ``superscreen_tpu.solve`` that the port does not act
+    on pass silently at their defaults (and ``progress_bar`` at any value:
+    ``Device.mutual_inductance_matrix`` forwards ``progress_bar=False``)."""
+    import inspect
+
+    ref_names = set(inspect.signature(sc.solve).parameters) - {"_solver"}
+    assert ref_names <= set(inspect.signature(st.solve).parameters)
+    ref, kwargs = _quickstart()
+    device = st.device_from_reference(ref)
+    plain = st.solve(device, torch_device="cpu", **kwargs)
+    spelled = st.solve(
+        device, torch_device="cpu", check_inversion=False, return_solutions=True,
+        save_path=None, log_level=None, progress_bar=False, high_precision=False, **kwargs
+    )
+    for a, b in zip(plain, spelled):
+        for name in device.films:
+            np.testing.assert_array_equal(a.film_solutions[name].stream, b.film_solutions[name].stream)
 
 
 def test_unsupported_device_features_raise():
@@ -238,6 +277,37 @@ def test_import_pulls_in_no_jax_or_reference_package():
         capture_output=True, text=True, check=True, timeout=300, cwd=repo,
     ).stdout.split("\n")
     assert out[0] == "[]" and out[1] == "[]", out
+
+
+def test_every_module_imports_with_the_other_packages_blocked():
+    """Every module of the port imports where JAX, the reference package,
+    matplotlib, h5py and dill cannot be imported at all."""
+    code = (
+        "import sys\n"
+        "blocked = ('jax', 'jaxlib', 'superscreen_tpu', 'matplotlib', 'h5py', 'dill')\n"
+        "for name in blocked:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil\n"
+        "import superscreen_tpu_torch as package\n"
+        "names = [package.__name__] + [\n"
+        "    m.name for m in pkgutil.walk_packages(package.__path__, package.__name__ + '.')\n"
+        "]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert all(sys.modules[name] is None for name in blocked)\n"
+        "print(' '.join(names))\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, timeout=300, cwd=repo,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = out.stdout.split()
+    assert len(names) >= 30
+    for module in ("fluxoid", "solution", "ops.interp", "sources.current", "sources.dipole",
+                   "sources.vortex", "ops.cuda_kernels"):
+        assert f"superscreen_tpu_torch.{module}" in names
 
 
 @pytest.mark.parametrize("k", [0, 1, 3])
