@@ -5,7 +5,10 @@ The multi-film ``solve()`` and the batched ``solve_many()`` sweep of
 low-memory path, with circulating currents, vortices, transport terminals
 and a position-dependent penetration depth, and the post-processing of a
 ``Solution`` (interpolation, fluxoids, currents through a path, fields and
-the vector potential anywhere in space, the mutual-inductance matrix): the
+the vector potential anywhere in space, the mutual-inductance matrix), the
+float64 delivery paths (``solve_many(final_refine=...)``,
+``solve(high_precision=True)``, ``certify.certify_sweep``) and the SQUID
+gallery (``squids``): the
 same host layer (geometry, meshing, FEM operators) in NumPy, the film
 systems, the self-consistent coupling and the post-processing sums in
 PyTorch, and the pairwise kernels written by hand in CUDA C++ (``csrc/``).  This package imports neither JAX nor ``superscreen_tpu``.

@@ -126,6 +126,11 @@ class Polygon:
     def points(self, points) -> None:
         self._points = _coerce_ring(points)
 
+    def set_layer(self, layer: Optional[str]) -> "Polygon":
+        """Re-assigns the polygon's layer; returns ``self`` for chaining."""
+        self.layer = layer
+        return self
+
     @property
     def is_valid(self) -> bool:
         """Whether the polygon is fully specified (named, on a layer, and

@@ -36,10 +36,13 @@ __all__ = [
     "biot_savart_batch",
     "q_apply",
     "biot_savart_pair",
+    "residual_f64",
 ]
 
 #: Launch counts per kernel; a wrapper adds one each time it launches.
-LAUNCHES = {"q_matrix": 0, "biot_savart_batch": 0, "q_apply": 0, "biot_savart_pair": 0}
+LAUNCHES = {
+    "q_matrix": 0, "biot_savart_batch": 0, "q_apply": 0, "biot_savart_pair": 0, "residual_f64": 0,
+}
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PACKAGE_DIR / "csrc"
@@ -133,6 +136,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"sstt_{kernel}_geometry")
         fn.argtypes = [ctypes.c_int, i64, ctypes.POINTER(i64), ctypes.POINTER(i64)]
         fn.restype = None
+    lib.sstt_residual_f64.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr]
+    lib.sstt_residual_f64.restype = ctypes.c_int
     return lib
 
 
@@ -385,3 +390,48 @@ def biot_savart_pair(
     _raise_on_error("biot_savart_pair", code)
     LAUNCHES["biot_savart_pair"] += 1
     return out2, out1
+
+
+#: Right-hand-side columns one ``residual_f64`` launch takes.
+_RESIDUAL_COLS = 8
+
+
+def residual_f64(A: torch.Tensor, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """``R = H + A @ X`` in float64 for a float32 ``A`` ``(m, n)``, float64
+    ``X`` ``(n, k)`` and float32 or float64 ``H`` ``(m, k)``: the products
+    and sums are float64 (widening ``A`` is exact).  Returns ``(m, k)``
+    float64.  Right-hand sides wider than 8 columns take one launch per
+    chunk of 8."""
+    if A.ndim != 2 or X.ndim != 2:
+        raise ValueError(
+            f"A must have shape (m, n) and X (n, k), got {tuple(A.shape)} and {tuple(X.shape)}."
+        )
+    (m, n), k = A.shape, X.shape[1]
+    _check("A", A, torch.float32, (m, n))
+    _check("X", X, torch.float64, (n, k))
+    if H.dtype not in _SUPPORTED:
+        raise TypeError(f"H must be float32 or float64, got {H.dtype}.")
+    _check("H", H, H.dtype, (m, k))
+    _same_device("A", A, X=X, H=H)
+    H = H.double()
+    out = torch.empty((m, k), dtype=torch.float64, device=A.device)
+    if m == 0 or k == 0:
+        return out
+    with torch.cuda.device(A.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        for lo in range(0, k, _RESIDUAL_COLS):
+            if k <= _RESIDUAL_COLS:
+                x, h, r = X, H, out
+            else:
+                cols = slice(lo, lo + _RESIDUAL_COLS)
+                x, h = X[:, cols].contiguous(), H[:, cols].contiguous()
+                r = torch.empty_like(h)
+            code = lib.sstt_residual_f64(
+                A.data_ptr(), x.data_ptr(), h.data_ptr(), m, n, x.shape[1], r.data_ptr(), stream
+            )
+            _raise_on_error("residual_f64", code)
+            LAUNCHES["residual_f64"] += 1
+            if r is not out:
+                out[:, cols] = r
+    return out

@@ -1,6 +1,7 @@
 """Pairwise kernels: the Brandt kernel ``Q`` (dense, or applied
 matrix-free), inter-film Biot-Savart coupling, and the field and vector
-potential of a sheet current anywhere in space.
+potential of a sheet current anywhere in space; and the mixed-precision
+residual of a float32 film system (:func:`residual_f64`).
 
 Counterpart of ``superscreen_tpu/ops/kernels.py``.  Each public function
 dispatches on the device of its input tensors: a CPU tensor takes the
@@ -36,6 +37,7 @@ __all__ = [
     "biot_savart_pair_dz2",
     "biot_savart_within_film",
     "boundary_effective_field",
+    "residual_f64",
 ]
 
 _ONE_OVER_4PI = 1 / (4 * np.pi)
@@ -495,3 +497,32 @@ def boundary_effective_field(
         dot = -torch.sum(dr * boundary_normals[None, :, :], dim=-1)
         out[lo : lo + block] = torch.sum(weight[None, :] * dot * (rinv * rinv * rinv), dim=1)
     return _ONE_OVER_4PI * out
+
+
+def residual_f64_plain(
+    A: torch.Tensor, X: torch.Tensor, H: torch.Tensor, block: int = _BLOCK
+) -> torch.Tensor:
+    """Plain PyTorch ``R = H + A @ X`` in float64 for a float32 ``A``
+    ``(m, n)``: row blocks of ``A`` are widened on the fly (exactly) and
+    multiplied in float64, so the transient is ``(block, n)``."""
+    R = torch.empty(H.shape, dtype=torch.float64, device=H.device)
+    for lo in range(0, A.shape[0], block):
+        rows = slice(lo, lo + block)
+        R[rows] = torch.addmm(H[rows].double(), A[rows].double(), X)
+    return R
+
+
+def residual_f64(A: torch.Tensor, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """The float64 residual ``R = H + A @ X`` of a system stored in
+    float32: ``A`` ``(m, n)`` float32 (a film's square system, or the rows
+    of a rectangular block), ``X`` ``(n, k)`` float64, ``H`` ``(m, k)``
+    float32 or float64.  Every product and sum is float64, and widening
+    ``A`` is exact, so this is the residual a float64 copy of ``A`` would
+    give, at the cost of reading the float32 one once.
+
+    Returns:
+        ``(m, k)`` float64, on the tensors' device.
+    """
+    if _uses_kernel(A):
+        return cuda_kernels.residual_f64(A.contiguous(), X.contiguous(), H.contiguous())
+    return residual_f64_plain(A, X, H)

@@ -27,9 +27,12 @@ __all__ = [
     "lu_solve",
     "lu_solve_refined",
     "refine_safeguarded",
+    "refined_solve",
+    "mixed_preconditioner",
     "system_residual",
     "large_factor_method",
     "brandt_matvec",
+    "brandt_matvec64",
     "brandt_cg_solve_host",
     "brandt_bicgstab_solve_host",
     "matrix_free_solve_host",
@@ -79,9 +82,16 @@ def lu_solve_refined(
     refine_steps: int = 2,
 ) -> torch.Tensor:
     """Solves ``(-A) x = h`` with ``refine_steps`` rounds of plain
-    iterative refinement (``x += lu_solve(h + A @ x)``), for the solves
-    outside the sweep: the terminal bootstrap and the vortex response
-    columns."""
+    iterative refinement (``x += lu_solve(h + A @ x)``, the residual from
+    :func:`system_residual`), for the solves outside the sweep: the
+    terminal bootstrap and the vortex response columns.
+
+    A float64 ``A`` with float32 factors is a high-precision system (see
+    :mod:`superscreen_tpu_torch.solver.refine`): it is solved to float64
+    accuracy by :func:`refined_solve`, with the factors as preconditioner.
+    """
+    if lu_perm[0].dtype != A.dtype:
+        return refined_solve(A, mixed_preconditioner(lu_perm, A.dtype), h)
     squeeze = h.ndim == 1
     if squeeze:
         h = h[:, None]
@@ -91,13 +101,6 @@ def lu_solve_refined(
     return x[:, 0] if squeeze else x
 
 
-#: Row-block size of :func:`system_residual`'s float64 pass.
-_RESIDUAL_BLOCK = 2048
-#: Fewest right-hand-side columns for which :func:`system_residual`
-#: accumulates a float32 system's residual in float64.
-F64_RESIDUAL_MIN_COLS = 2
-
-
 def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The residual ``h + A @ x`` of ``(-A) x = h`` (``h``, ``x`` of shape
     ``(n, k)``), in the dtype of ``h``.
@@ -105,18 +108,80 @@ def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.
     ``A x`` cancels to a small fraction of ``|A| |x|`` (the Brandt kernel's
     rows and the Laplacian's both sum to nearly nothing on a smooth
     stream), so a float32 product carries a rounding error that is large
-    against the residual itself.  For a float32 system with at least
-    :data:`F64_RESIDUAL_MIN_COLS` columns the product is therefore
-    accumulated in float64, over row blocks of ``A`` widened on the fly.
+    against the residual itself: refinement on it stalls near 1e-4 of the
+    streams, or follows the product's noise.  The residual of a float32
+    system is therefore formed in float64 for any number of columns, by
+    :func:`ops.kernels.residual_f64`, which reads the float32 ``A`` once.
     """
-    if A.dtype != torch.float32 or x.shape[1] < F64_RESIDUAL_MIN_COLS:
+    if A.dtype != torch.float32:
         return h + A @ x
-    r = torch.empty_like(h)
-    x64 = x.double()
-    for lo in range(0, A.shape[0], _RESIDUAL_BLOCK):
-        rows = slice(lo, lo + _RESIDUAL_BLOCK)
-        r[rows] = torch.addmm(h[rows].double(), A[rows].double(), x64)
-    return r
+    return kernels.residual_f64(A, x.double(), h).to(h.dtype)
+
+
+def mixed_preconditioner(
+    lu_perm: Tuple[torch.Tensor, torch.Tensor], dtype: torch.dtype
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The factors of a lower-precision copy of ``-A`` as an approximate
+    solver for right-hand sides of ``dtype``: cast down, solve, cast up."""
+    low = lu_perm[0].dtype
+
+    def precond(rhs: torch.Tensor) -> torch.Tensor:
+        return lu_solve(lu_perm, rhs.to(low)).to(dtype)
+
+    return precond
+
+
+def refined_solve(
+    A64: torch.Tensor,
+    precond: Callable[[torch.Tensor], torch.Tensor],
+    h64: torch.Tensor,
+    rtol: float = 1e-12,
+    max_steps: int = 20,
+) -> torch.Tensor:
+    """Solves ``(-A) x = h`` to float64 accuracy given only a low-precision
+    solver for the same system.
+
+    ``precond(r)`` returns an approximate solution of ``(-A) x = r``
+    (typically the float32 factorization, see
+    :func:`mixed_preconditioner`).  Refinement iterates
+    ``x += precond(h + A @ x)`` with the residual in float64, keeps the
+    best iterate per column, and stops once every residual is below
+    ``rtol * |h|`` or none improves.  A stall above 1e-8 is logged (a
+    diagnostic: the best iterate is returned either way).
+
+    Args:
+        A64: ``(n, n)`` float64 system, on the device of ``h64``.
+        h64: ``(n,)`` or ``(n, k)`` float64 right-hand sides.
+
+    Returns:
+        ``x``, shaped like ``h64``.
+    """
+    squeeze = h64.ndim == 1
+    H = h64[:, None] if squeeze else h64
+    href = torch.clamp(torch.linalg.vector_norm(H, dim=0), min=torch.finfo(H.dtype).tiny)
+    x = precond(H)
+    r = H + A64 @ x
+    best_x = x
+    best_r = torch.linalg.vector_norm(r, dim=0)
+    for _ in range(max_steps):
+        if bool(torch.all(best_r <= rtol * href)):
+            break
+        x = x + precond(r)
+        r = H + A64 @ x
+        rn = torch.linalg.vector_norm(r, dim=0)
+        improved = rn < best_r
+        if not bool(improved.any()):
+            break
+        best_x = torch.where(improved[None, :], x, best_x)
+        best_r = torch.minimum(rn, best_r)
+    worst = float(torch.max(best_r / href))
+    if worst > 1e-8:
+        logger.warning(
+            f"High-precision refinement stalled at relative residual "
+            f"{worst:.3e}; the f32 preconditioner may be too inaccurate "
+            f"for this system's conditioning."
+        )
+    return best_x[:, 0] if squeeze else best_x
 
 
 def refine_safeguarded(
@@ -341,10 +406,38 @@ def brandt_bicgstab_solve_host(
     return x[:, 0] if squeeze else x
 
 
+def brandt_matvec64(op: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """:func:`brandt_matvec` in float64 on float64 copies of the operator
+    pieces (made once and kept in ``op``): the true product of the stored
+    operator, free of the float32 rounding of its ``ni`` terms per row."""
+    if op["diag"].dtype == torch.float64:
+        return brandt_matvec(op, x)
+    if "f64" not in op:
+        op["f64"] = {
+            key: value.double() if torch.is_tensor(value) and value.is_floating_point() else value
+            for key, value in op.items()
+        }
+    return brandt_matvec(op["f64"], x.double())
+
+
+#: Tolerance of the correction solve of :func:`matrix_free_solve_host`: it
+#: only has to shrink a residual of ~1e-4 below the solves' own 1e-6.
+_CORRECTION_TOL = 1e-3
+
+
 def matrix_free_solve_host(op: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
     """A matrix-free solve of ``(-A) x = h``: CG for a symmetric operator,
     BiCGStab when the operator carries the non-symmetric
-    inhomogeneous-Lambda term (``op["nonsym"]``)."""
-    if op.get("nonsym", False):
-        return brandt_bicgstab_solve_host(op, h)
-    return brandt_cg_solve_host(op, h)
+    inhomogeneous-Lambda term (``op["nonsym"]``).
+
+    In float32 the Krylov recurrence residual drifts from the true one, and
+    a solve that stops at 1e-6 ends at a true residual above 1e-4.  So a
+    float32 solve is followed by one step of iterative refinement: the true
+    residual is formed matrix-free in float64 (:func:`brandt_matvec64`) and
+    a second, looser Krylov solve corrects for it."""
+    solve = brandt_bicgstab_solve_host if op.get("nonsym", False) else brandt_cg_solve_host
+    x = solve(op, h)
+    if h.dtype == torch.float32:
+        r = h.double() + brandt_matvec64(op, x)
+        x = x + solve(op, r.to(h.dtype), tol=_CORRECTION_TOL)
+    return x

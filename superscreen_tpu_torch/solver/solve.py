@@ -91,6 +91,10 @@ class FactorizedModel:
         terminal_systems: ``{film_name: TerminalSystems}``.
         terminal_currents: ``{film_name: {terminal_name: current}}``.
         vortices: ``{film_name: vortices}``.
+        hp_model: The float64 twin behind ``solve(high_precision=True)``
+            (built on first use by
+            :func:`superscreen_tpu_torch.solver.refine.get_hp_model`).
+        hp_systems: On that twin, ``{film_name: HighPrecisionSystem}``.
     """
 
     device: Device
@@ -105,6 +109,8 @@ class FactorizedModel:
     terminal_currents: Dict[str, Dict[str, float]] = field(default_factory=dict)
     vortices: Dict[str, Sequence[Vortex]] = field(default_factory=dict)
     film_data_vortices: tuple = ()
+    hp_model: Optional["FactorizedModel"] = None
+    hp_systems: Dict[str, object] = field(default_factory=dict)
 
     def set_circulating_currents(self, circulating_currents: Dict[str, float]) -> None:
         """Sets the circulating currents (floats in ``current_units``)
@@ -235,11 +241,12 @@ def factorize_model(
 
 
 def _sample_applied_fields(
-    device: Device, applied_field: Callable, field_conversion: float
+    device: Device, applied_field: Callable, field_conversion: float, dtype=None
 ) -> Dict[str, np.ndarray]:
     """Evaluates the applied field at every film's mesh sites (at the
-    film's layer height), scaled into ``current_units / length_units``."""
-    dtype = device.solve_dtype
+    film's layer height), scaled into ``current_units / length_units``, in
+    the device's solve dtype (or in ``dtype``)."""
+    dtype = np.dtype(device.solve_dtype if dtype is None else dtype)
     out = {}
     for film, mesh in device.meshes.items():
         sites = mesh.sites
@@ -295,8 +302,11 @@ def solve(
         vortices: Vortices in the device.
         field_units: Units of the applied field (H or B).
         current_units: Units for currents.
-        check_inversion: Verify the solves against a float64 system; not
-            supported yet (must be False).
+        check_inversion: Verify every film solve: the float64 residual
+            ``h + A g`` of the solved stream (through
+            :func:`ops.kernels.residual_f64` for a float32 system) is held
+            to ``numpy.allclose``'s tolerances against ``h``, and a failure
+            is logged as a warning.  Matrix-free films are not checked.
         iterations: Number of self-consistent coupling rounds.
         return_solutions: Must be True: the solutions are not saved, so
             they are always returned.
@@ -305,8 +315,13 @@ def solve(
         log_level: Logging level, handed to ``logging.basicConfig``.
         progress_bar: Accepted for callers of the JAX package; the coupling
             rounds show no progress bar.
-        high_precision: Float64 refinement around the float32
-            factorizations; not supported yet (must be False).
+        high_precision: Solve to float64 accuracy around the float32
+            factorizations (see :mod:`superscreen_tpu_torch.solver.refine`):
+            float64 systems on the torch device, every film solve refined
+            in float64 with the float32 LU as preconditioner, float64
+            current densities, self-fields and inter-film coupling.  The
+            solutions hold float64 arrays.  A film solved matrix-free
+            raises.
         coupling: ``"exact"`` or ``"auto"`` (which means exact here);
             ``"fft"`` is not supported yet.
         torch_device: ``"cuda"`` (default; raises without a card) or
@@ -318,11 +333,6 @@ def solve(
     """
     if log_level is not None:
         logging.basicConfig(level=log_level)
-    if check_inversion or high_precision:
-        raise NotImplementedError(
-            "check_inversion and high_precision need the float64 systems of "
-            "solver/refine.py, which are not ported yet (ROADMAP item 2, certify and refine)."
-        )
     if save_path is not None or not return_solutions:
         raise NotImplementedError(
             "save_path and return_solutions=False need Solution.to_hdf5, which is not "
@@ -359,12 +369,18 @@ def solve(
     device = model.device
     current_units = model.current_units
     films = list(device.films)
-    tdtype = torch_dtype(device.solve_dtype)
+    solve_model, dtype = model, np.dtype(device.solve_dtype)
+    if high_precision:
+        from .refine import get_hp_model
+
+        with highest_matmul_precision():
+            solve_model, dtype = get_hp_model(model), np.dtype(np.float64)
+    tdtype = torch_dtype(dtype)
     field_conversion = field_conversion_factor(
         field_units, current_units, length_units=device.length_units, ureg=device.ureg
     ).magnitude
     applied_field = applied_field or ConstantField(0)
-    applied_fields = _sample_applied_fields(device, applied_field, field_conversion)
+    applied_fields = _sample_applied_fields(device, applied_field, field_conversion, dtype)
     Hz = {
         name: torch.as_tensor(applied_fields[name][None], device=torch_device)
         for name in films
@@ -380,12 +396,13 @@ def solve(
     coupled = len(films) >= 2 and iterations >= 1
     with highest_matmul_precision():
         gs, Js, selfs, others = _run_sweep_history(
-            _get_sweep_data(model),
+            _get_sweep_data(solve_model),
             Hz,
             I_circ,
             vortex_flux_quantum(device, current_units),
             iterations if coupled else 0,
             2,
+            check_inversion=check_inversion,
         )
     gs, Js, selfs, others = (
         {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)

@@ -259,7 +259,7 @@ def max_materialized_n(dtype: torch.dtype) -> int:
 
 
 def factorize_linear_systems(
-    device: Device, film_info_dict: Dict[str, FilmInfo]
+    device: Device, film_info_dict: Dict[str, FilmInfo], assemble_only: bool = False
 ) -> Tuple[
     Dict[str, LinearSystem],
     Dict[str, Dict[str, LinearSystem]],
@@ -274,11 +274,20 @@ def factorize_linear_systems(
     ``SUPERSCREEN_TPU_LARGE_FACTOR=cg`` or an interior above
     ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N``, left to a matrix-free solve.
 
+    With ``assemble_only`` every system is materialized and none is
+    factorized (``lu_piv`` stays None): the float64 assembly of a
+    high-precision model, whose solves run on the float32 factors (see
+    :mod:`superscreen_tpu_torch.solver.refine`).
+
     Returns:
         ``{film: film_system}``, ``{film: {hole: hole_system}}`` and
         ``{film: TerminalSystems}``.
     """
     method = linalg.large_factor_method()
+
+    def factor(A):
+        return None if assemble_only else linalg.factor_system(A)
+
     film_systems = {}
     hole_systems = {}
     terminal_systems = {}
@@ -297,7 +306,9 @@ def factorize_linear_systems(
                 )
                 for hole_name, indices in info.hole_indices.items()
             }
-            if method == "cg" or len(interior) > max_materialized_n(info.weights.dtype):
+            if not assemble_only and (
+                method == "cg" or len(interior) > max_materialized_n(info.weights.dtype)
+            ):
                 film_systems[film_name] = LinearSystem(
                     A=None,
                     indices=interior,
@@ -305,9 +316,7 @@ def factorize_linear_systems(
                 )
             else:
                 A = _build_system_2d_lowmem(info, interior, sites)
-                film_systems[film_name] = LinearSystem(
-                    A=A, indices=interior, lu_piv=linalg.factor_system(A)
-                )
+                film_systems[film_name] = LinearSystem(A=A, indices=interior, lu_piv=factor(A))
             continue
         Q, weights, laplacian = info.kernel, info.weights, info.laplacian
         Lambda = torch.as_tensor(
@@ -329,7 +338,7 @@ def factorize_linear_systems(
 
         def system_2d(indices):
             A = _build_system_2d(Q, weights, Lambda, laplacian, indices, grad_Lambda_term)
-            return LinearSystem(A=A, indices=indices, lu_piv=linalg.factor_system(A))
+            return LinearSystem(A=A, indices=indices, lu_piv=factor(A))
 
         hole_systems[film_name] = {
             hole_name: system_1d(indices) for hole_name, indices in info.hole_indices.items()
@@ -446,8 +455,13 @@ def solve_from_boundary_stream(
     g = np.array(g, dtype=float, copy=True)
 
     def effective_field(system: LinearSystem) -> np.ndarray:
-        x = torch.as_tensor(g[system.indices], dtype=system.A.dtype, device=system.A.device)
-        return -(system.A @ x).cpu().numpy().astype(float)
+        # ``-A @ g`` over the rectangular column block (all rows, the
+        # boundary's or a hole's columns), summed in float64 whatever the
+        # block's dtype.
+        A = system.A
+        x = torch.as_tensor(g[system.indices, None], device=A.device)
+        zero = torch.zeros((A.shape[0], 1), dtype=torch.float64, device=A.device)
+        return -linalg.system_residual(A, zero, x)[:, 0].cpu().numpy()
 
     def solve(system: LinearSystem, Ha_eff: np.ndarray) -> None:
         h = torch.as_tensor(

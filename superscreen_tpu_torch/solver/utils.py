@@ -13,7 +13,7 @@ terminals keeps the dense blocks at any size.
 import logging
 import numbers
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -212,8 +212,12 @@ def make_film_info(
     torch_device,
     vortices: Optional[List[Vortex]] = None,
     terminal_currents: Optional[Dict[str, Dict[str, float]]] = None,
+    films: Optional[Sequence[str]] = None,
+    dtype=None,
 ) -> Dict[str, FilmInfo]:
-    """Builds a :class:`FilmInfo` for every film in the device.  A film of
+    """Builds a :class:`FilmInfo` for every film in the device (or for the
+    named ``films`` only), in the device's solve dtype (or in ``dtype``:
+    the float64 assembly of a high-precision model).  A film of
     at most :data:`MAX_DENSE_KERNEL_SIZE` sites, or with terminals (the
     boundary correction needs explicit kernel columns), gets the dense
     ``Q`` (through the ``q_matrix`` kernel) and Laplacian, assembled on
@@ -225,7 +229,7 @@ def make_film_info(
             "The device does not have a mesh. Call device.make_mesh() to "
             "generate it."
         )
-    dtype = device.solve_dtype
+    dtype = np.dtype(device.solve_dtype if dtype is None else dtype)
     tdtype = torch_dtype(dtype)
     holes_by_film, vortices_by_film = get_holes_and_vortices_by_film(
         device, list(vortices or [])
@@ -233,6 +237,8 @@ def make_film_info(
     terminal_currents = terminal_currents or {}
     film_info = {}
     for name, film in device.films.items():
+        if films is not None and name not in films:
+            continue
         mesh = device.meshes[name]
         n = len(mesh.sites)
         is_terminal = name in device.terminals

@@ -78,6 +78,15 @@ class FilmSweepData:
             a terminal film, for its in-film Biot-Savart self-field.
         gtx_idx, gtx_w, gty_idx, gty_w: Its triangle gradients in gather
             form.
+        brandt_diag: ``(n,)`` ``C + q @ w`` at all sites (the Brandt
+            kernel's diagonal times ``w``), set for the float64 film data
+            of a high-precision model, whose self-field is
+            ``brandt_diag * g - q_apply(w g)``; else None.
+
+    In the float64 film data of a high-precision model (see
+    :mod:`superscreen_tpu_torch.solver.refine`) ``A`` is float64 while
+    ``lu`` stays the float32 factorization: the film solve is then
+    :func:`ops.linalg.refined_solve` with the factors as preconditioner.
     """
 
     name: str
@@ -111,6 +120,7 @@ class FilmSweepData:
     gtx_w: Optional[torch.Tensor] = None
     gty_idx: Optional[torch.Tensor] = None
     gty_w: Optional[torch.Tensor] = None
+    brandt_diag: Optional[torch.Tensor] = None
 
 
 def vortex_flux_quantum(device, current_units: str) -> float:
@@ -188,7 +198,7 @@ def _terminal_fields(model, film_name: str) -> Dict[str, object]:
     info = model.film_info[film_name]
     mesh = model.device.meshes[film_name]
     w = info.weights
-    dtype = model.device.solve_dtype
+    dtype = info.sites.dtype
     g_tr = solve_for_terminal_current_stream(
         model.device, info, model.terminal_systems[film_name], info.terminal_currents or {}
     )
@@ -208,7 +218,7 @@ def _terminal_fields(model, film_name: str) -> Dict[str, object]:
     )
 
 
-def film_sweep_data(model, film_name: str) -> FilmSweepData:
+def film_sweep_data(model, film_name: str, brandt_diag=None) -> FilmSweepData:
     """Builds a film's :class:`FilmSweepData` from a factorized model.
 
     For a dense film, ``Q diag(w)`` is formed in place in the film's ``Q``
@@ -223,7 +233,7 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
     mesh = device.meshes[film_name]
     torch_device = model.torch_device
     n = len(mesh.sites)
-    dtype = device.solve_dtype
+    dtype = info.sites.dtype
     w = info.weights
     hole_names = list(info.hole_indices)
     hole_masks = torch.zeros((len(hole_names), n), dtype=w.dtype, device=torch_device)
@@ -242,7 +252,7 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
     gy_idx, gy_w = mesh.operators.gradient_y.to_gather(dtype, torch_device)
     terminal = film_name in device.terminals
     Qw = None
-    if info.dense_kernel and not terminal:
+    if info.kernel is not None and not terminal:
         Qw = info.kernel.mul_(w[None, :])
     info.kernel = None
     if system.cg_op is None:
@@ -270,6 +280,7 @@ def film_sweep_data(model, film_name: str) -> FilmSweepData:
         hole_names=hole_names,
         cg_op=system.cg_op,
         fac_kind=fac_kind,
+        brandt_diag=brandt_diag,
         **_vortex_response(model, film_name),
         **(_terminal_fields(model, film_name) if terminal else {}),
     )
@@ -290,20 +301,46 @@ def _get_sweep_data(model) -> Dict[str, FilmSweepData]:
     return model.film_data
 
 
+def _widened(data: FilmSweepData, dtype: torch.dtype) -> FilmSweepData:
+    """``data`` with the operands of its self-field in ``dtype`` (float32
+    entries are exact in float64), for streams delivered in another dtype
+    than the film data's."""
+    def cast(t):
+        return None if t is None else t.to(dtype)
+
+    return replace(
+        data, sites=cast(data.sites), weights=cast(data.weights),
+        tri_centroids=cast(data.tri_centroids), tri_areas=cast(data.tri_areas),
+    )
+
+
 def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     """Self-field for ``g`` of shape ``(B, n)``: ``Q @ (w * g)`` as one
     product with ``Q diag(w)``, or on the low-memory path one matrix-free
     :func:`ops.kernels.Q_apply` over all ``B`` columns.  The stream of a
     film with terminals is nonzero on its boundary, so its self-field is
-    the in-film Biot-Savart sum over triangle-centroid currents."""
+    the in-film Biot-Savart sum over triangle-centroid currents.
+
+    Float64 streams on float32 film data (a polished sweep) take the same
+    operators widened: the pairwise sums run in float64, and the dense
+    ``Q diag(w)`` is applied by :func:`ops.kernels.residual_f64`, which
+    multiplies a float32 matrix with float64 columns in float64."""
+    if g.dtype != data.weights.dtype:
+        data = _widened(data, g.dtype)
     if data.terminal:
         Jtx = gather_matvec_batch(data.gty_idx, data.gty_w, g)
         Jty = -gather_matvec_batch(data.gtx_idx, data.gtx_w, g)
         return kernels.biot_savart_within_film(
             data.sites, data.tri_centroids, data.tri_areas, torch.stack([Jtx, Jty], dim=-1)
         )
+    if data.brandt_diag is not None:
+        wg = data.weights[None, :] * g
+        return data.brandt_diag[None, :] * g - kernels.q_apply(data.sites, wg.T.contiguous()).T
     if data.Qw is None:
         return kernels.Q_apply(data.sites, data.weights, (data.weights[None, :] * g).T).T
+    if data.Qw.dtype != g.dtype:
+        gT = g.T.contiguous()
+        return kernels.residual_f64(data.Qw, gT, torch.zeros_like(gT)).T
     return (data.Qw @ g.T).T
 
 
@@ -332,15 +369,31 @@ def _vortex_term(data: FilmSweepData, vortex_flux: float) -> torch.Tensor:
     return data.vortex_cols @ eff.T
 
 
+def _check_inversion(data: FilmSweepData, h: torch.Tensor, gf: torch.Tensor) -> None:
+    """Warns if the solved interior stream ``gf`` does not reproduce the
+    right-hand side ``h`` (both ``(ni, B)``): ``-A gf`` must equal ``h``
+    within ``numpy.allclose``'s tolerances (``1e-8 + 1e-5 |h|`` per
+    entry).  The difference is the float64 residual ``h + A gf``."""
+    r = linalg.system_residual(data.A, h.double(), gf.double())
+    err = r.abs()
+    if bool(torch.any(err > 1e-8 + 1e-5 * h.double().abs())):
+        logger.warning(
+            f"Unable to solve for stream function in {data.name!r}, "
+            f"maximum error {float(err.max()):.3e}."
+        )
+
+
 def _solve_film_batch(
     data: FilmSweepData,
     Hz_total: torch.Tensor,  # (B, n): applied + field from other films
     I_circ: torch.Tensor,  # (B, n_holes)
     vortex_flux: float,
     refine_steps: int = 2,
+    check_inversion: bool = False,
 ):
     """Batched single-film solve.  Returns ``g`` ``(B, n)`` and ``J``
-    ``(B, n, 2)``."""
+    ``(B, n, 2)``.  With ``check_inversion`` the solve of a materialized
+    system is verified (see :func:`_check_inversion`)."""
     g0, h = _interior_rhs(data, Hz_total, I_circ)
     hT = h.T.contiguous()  # (ni, B)
     if data.fac_kind in ("cg", "bicgstab"):
@@ -352,9 +405,17 @@ def _solve_film_batch(
         def solve(rhs):
             return linalg.lu_solve((data.lu, data.perm), rhs)
 
-        gf = solve(hT)
-        if refine_steps:
-            gf = linalg.refine_safeguarded(solve, data.A, hT, gf, refine_steps)
+        if data.lu.dtype != data.A.dtype:
+            # A high-precision film: float64 system, float32 factors.
+            gf = linalg.refined_solve(
+                data.A, linalg.mixed_preconditioner((data.lu, data.perm), data.A.dtype), hT
+            )
+        else:
+            gf = solve(hT)
+            if refine_steps:
+                gf = linalg.refine_safeguarded(solve, data.A, hT, gf, refine_steps)
+        if check_inversion:
+            _check_inversion(data, hT, gf)
     if data.vortex_cols is not None:
         gf = gf + _vortex_term(data, vortex_flux)
     # The interior indices are unique, so the scatter-add is exact.
@@ -383,7 +444,8 @@ def _coupling_round(film_data: Dict[str, FilmSweepData], films: List[str], Js, H
 
 
 def _run_sweep_history(
-    film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int
+    film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
+    check_inversion: bool = False,
 ):
     """The initial per-film solves plus ``iterations`` coupling rounds,
     recording every round, each at full refinement.
@@ -399,7 +461,8 @@ def _run_sweep_history(
     others = {name: [torch.zeros_like(Hz_applied[name])] for name in films}
     for name in films:
         g, J = _solve_film_batch(
-            film_data[name], Hz_applied[name], I_circ[name], vortex_flux, refine_steps
+            film_data[name], Hz_applied[name], I_circ[name], vortex_flux, refine_steps,
+            check_inversion,
         )
         gs[name].append(g)
         Js[name].append(J)
@@ -414,6 +477,7 @@ def _run_sweep_history(
                 I_circ[name],
                 vortex_flux,
                 refine_steps,
+                check_inversion,
             )
             gs[name].append(g)
             Js[name].append(J)
@@ -490,7 +554,8 @@ def relative_residual(
 ) -> torch.Tensor:
     """Relative residual ``||h + A g_int|| / ||h||`` of a film's interior
     system for a solved stream ``g`` ``(B, n)``, one value per batch row.
-    A matrix-free film has no ``A``: its product is applied matrix-free.
+    A matrix-free film has no ``A``: its product is applied matrix-free, in
+    float64 (the true residual of the stored operator).
     What the solve adds to its solution is taken out first: the transport
     stream of a film with terminals and the vortices' part (with
     ``vortex_flux`` as the solve used it)."""
@@ -499,7 +564,7 @@ def relative_residual(
     if data.vortex_cols is not None:
         g_int = g_int - _vortex_term(data, vortex_flux)
     if data.A is None:
-        r = h.T + linalg.brandt_matvec(data.cg_op, g_int)
+        r = (h.T.double() + linalg.brandt_matvec64(data.cg_op, g_int)).to(h.dtype)
     else:
         r = linalg.system_residual(data.A, h.T.contiguous(), g_int)
     return torch.linalg.vector_norm(r, dim=0) / torch.linalg.vector_norm(h.T, dim=0)
@@ -525,6 +590,10 @@ class SweepResult:
             order (or None: the declared ones).
         terminal_currents: The per-point transport drives (or None: the
             model's).
+
+    ``final_refine_report`` holds the report of the float64 polish when
+    the sweep was run with ``final_refine`` (see
+    :func:`superscreen_tpu_torch.certify.refine_sweep_f64`), else None.
     """
 
     def __init__(
@@ -555,6 +624,7 @@ class SweepResult:
         self.circulating_currents = circulating_currents
         self.vortex_nPhi0 = vortex_nPhi0
         self.terminal_currents = terminal_currents
+        self.final_refine_report = None
 
     @property
     def num_solutions(self) -> int:
@@ -836,11 +906,18 @@ def solve_many(
             amplitudes sweep the vortex position over the declared
             candidate sites in one batched solve; integer rows sweep
             winding-number states.
-        final_refine: Float64 polish steps after the sweep; not supported
-            yet (must be 0).
+        final_refine: Float64 polish steps after the sweep (see
+            :func:`superscreen_tpu_torch.certify.refine_sweep_f64`): the
+            final per-film systems are re-refined on the torch device with
+            a float64 residual, the current densities and self-fields are
+            recomputed from the polished streams, and all three are
+            delivered in float64 unless ``result_dtype`` says otherwise.
+            The report is ``SweepResult.final_refine_report``.  Matrix-free
+            and vortex films are left as solved.  Not with
+            ``keep_history``.
         result_dtype: dtype of the delivered streams, current densities and
-            self-fields (default: the device's ``solve_dtype``); a host-side
-            cast.  Not with ``keep_history``.
+            self-fields (default: the device's ``solve_dtype``, or float64
+            with ``final_refine``).  Not with ``keep_history``.
         torch_device: ``"cuda"`` (default; raises without a card) or
             ``"cpu"``.  A given ``model`` must live on this device.
 
@@ -876,11 +953,6 @@ def solve_many(
         raise ValueError(
             "result_dtype is not supported with keep_history=True (the "
             "history path stores the sweep's native dtype)."
-        )
-    if final_refine:
-        raise NotImplementedError(
-            "final_refine > 0 needs the float64 polish of certify.refine_sweep_f64, "
-            "which is not ported yet (ROADMAP item 2, certify and refine)."
         )
     if coupling == "fft":
         raise NotImplementedError(
@@ -969,12 +1041,22 @@ def solve_many(
                 model, film_data, terminal_currents, B, current_units
             )
         runner = _run_sweep_history if keep_history else _run_sweep
-        streams, Js, self_fields, others = (
-            to_host(d)
-            for d in runner(film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps)
+        streams, Js, self_fields, others = runner(
+            film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps
         )
+        polish_report = None
+        if final_refine:
+            from .certify import refine_sweep_f64, sweep_outputs_from_streams
+
+            streams, polish_report = refine_sweep_f64(
+                film_data, streams, others if multi else None, Hz_applied, I_circ,
+                steps=final_refine, result_dtype=result_dtype or "float64",
+            )
+            # Current densities and self-fields follow the polished streams.
+            Js, self_fields = sweep_outputs_from_streams(film_data, streams)
+        streams, Js, self_fields, others = (to_host(d) for d in (streams, Js, self_fields, others))
     applied_host = {name: t * inv for name, t in to_host(Hz_applied).items()}
-    if result_dtype is not None:
+    if result_dtype is not None and not final_refine:
         dt = np.dtype(result_dtype)
         streams, Js, self_fields = (
             {name: a.astype(dt) for name, a in d.items()} for d in (streams, Js, self_fields)
@@ -998,4 +1080,6 @@ def solve_many(
 
     if keep_history:
         return [result(lambda a, it=it: a[it]) for it in range(iterations + 1)]
-    return result(lambda a: a)
+    final = result(lambda a: a)
+    final.final_refine_report = polish_report
+    return final

@@ -612,3 +612,84 @@ def test_mutual_inductance_on_the_card_matches_cpu_float64(cuda):
     solution = st.find_fluxoid_solution(device, {"big_hole": 1}, iterations=3)
     fluxoids = {h: sum(solution.hole_fluxoid(h)).to("Phi_0").magnitude for h in device.holes}
     assert abs(fluxoids["big_hole"] - 1) < 1e-3 and abs(fluxoids["small_hole"]) < 1e-3
+
+
+# Rows on both sides of a block of 32, columns on both sides of a tile of
+# 128 (and an odd row length, so that no row start is aligned).
+RESIDUAL_EDGES = [(1, 1), (31, 127), (32, 128), (33, 129), (257, 1001), (1000, 643)]
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", CHUNK_EDGES)
+@pytest.mark.parametrize("m,n", RESIDUAL_EDGES)
+def test_residual_f64_kernel_matches_plain(cuda, m, n, k, h_dtype):
+    rng = np.random.default_rng(1000 * m + k)
+    A = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((n, k)), device=cuda)
+    H = torch.as_tensor(rng.standard_normal((m, k)), dtype=h_dtype, device=cuda)
+    before = cuda_kernels.LAUNCHES["residual_f64"]
+    out = kernels.residual_f64(A, X, H)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["residual_f64"] == before + -(-k // 8)
+    assert out.shape == (m, k) and out.dtype == torch.float64
+    # float64 sums of exact products in another order.
+    assert _rel_err(out, kernels.residual_f64_plain(A, X, H)) <= TOL[torch.float64]
+    assert torch.equal(out, kernels.residual_f64(A, X, H))
+
+
+def test_residual_f64_takes_a_row_block_and_refuses_bad_input(cuda):
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((300, 200)), dtype=torch.float32, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((200, 3)), device=cuda)
+    H = torch.zeros((300, 3), dtype=torch.float64, device=cuda)
+    full = kernels.residual_f64(A, X, H)
+    rows = kernels.residual_f64(A[40:170], X, H[40:170])
+    assert torch.equal(rows, full[40:170])
+    with pytest.raises(TypeError):
+        cuda_kernels.residual_f64(A.double(), X, H)
+    with pytest.raises(TypeError):
+        cuda_kernels.residual_f64(A, X.float(), H)
+    with pytest.raises(ValueError):
+        cuda_kernels.residual_f64(A, X[:-1], H)
+    with pytest.raises(ValueError):
+        cuda_kernels.residual_f64(A.cpu(), X, H)
+
+
+def test_system_residual_on_the_card_is_float64_from_one_column(cuda):
+    from superscreen_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(6)
+    n = 2000
+    A64 = torch.as_tensor(rng.standard_normal((n, n)) + 50 * np.eye(n), device=cuda)
+    x64 = torch.as_tensor(rng.uniform(0.5, 1.5, (n, 1)), device=cuda)
+    h64 = -(A64 @ x64) * (1 + 1e-4 * torch.as_tensor(rng.standard_normal((n, 1)), device=cuda))
+    A, h, x = A64.float(), h64.float(), x64.float()
+    exact = h.double() + A.double() @ x.double()
+    before = cuda_kernels.LAUNCHES["residual_f64"]
+    r = linalg.system_residual(A, h, x)
+    assert cuda_kernels.LAUNCHES["residual_f64"] == before + 1 and r.dtype == torch.float32
+    err = _rel_err(r.double(), exact)
+    assert err <= 1e-6 and err < _rel_err((h + A @ x).double(), exact)
+
+
+def test_high_precision_and_polish_on_the_card_match_float64(cuda):
+    device = _two_films(700, "float32")
+    device64 = device.copy()
+    device64.solve_dtype = "float64"
+    kwargs = dict(
+        applied_field=st.sources.ConstantField(1.0), circulating_currents={"big_hole": "1 mA"},
+        iterations=3,
+    )
+    exact = st.solve(device64, torch_device="cuda", **kwargs)[-1]
+    hp = st.solve(device, high_precision=True, check_inversion=True, torch_device="cuda", **kwargs)[-1]
+    polished = st.solve_many(
+        device, applied_fields=[kwargs["applied_field"]],
+        circulating_currents=[kwargs["circulating_currents"]], iterations=3, final_refine=2,
+        torch_device="cuda",
+    )
+    assert polished.final_refine_report["residual_rel_max_after"] < 1e-9
+    for name, fs in exact.film_solutions.items():
+        scale = np.abs(fs.stream).max()
+        assert np.abs(hp.film_solutions[name].stream - fs.stream).max() <= 1e-9 * scale
+        # The polish solves the float32-rounded system exactly.
+        assert np.abs(polished.streams[name][0] - fs.stream).max() <= 1e-5 * scale

@@ -184,14 +184,14 @@ def test_cuda_without_a_card_raises():
         (lambda d: st.solve(d, coupling="bogus", torch_device="cpu"), ValueError),
         (lambda d: st.solve(d, vortices=[object()], torch_device="cpu"), TypeError),
         (lambda d: st.solve(d, terminal_currents={"ring": {"a": 1.0}}, torch_device="cpu"), KeyError),
-        (lambda d: st.solve_many(d, applied_fields=[], final_refine=1, torch_device="cpu"),
-         NotImplementedError),
+        (lambda d: st.solve_many(d, applied_fields=[], final_refine=1, keep_history=True,
+                                 torch_device="cpu"), ValueError),
         (lambda d: st.solve_many(d, applied_fields=[], coupling="fft", torch_device="cpu"),
          NotImplementedError),
         (lambda d: st.solve(d, torch_device="meta"), ValueError),
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
-        (lambda d: st.solve(d, check_inversion=True, torch_device="cpu"), NotImplementedError),
-        (lambda d: st.solve(d, high_precision=True, torch_device="cpu"), NotImplementedError),
+        (lambda d: st.solve(d, check_inversion=True), RuntimeError),
+        (lambda d: st.solve(d, high_precision=True), RuntimeError),
         (lambda d: st.solve(d, save_path="out.h5", torch_device="cpu"), NotImplementedError),
         (lambda d: st.solve(d, return_solutions=False, torch_device="cpu"), NotImplementedError),
     ],
@@ -205,8 +205,6 @@ def test_unsupported_options_raise(call, error):
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        (dict(check_inversion=True), "ROADMAP item 2"),
-        (dict(high_precision=True), "ROADMAP item 2"),
         (dict(save_path="out.h5"), "ROADMAP item 9"),
         (dict(return_solutions=False), "ROADMAP item 9"),
     ],

@@ -443,7 +443,9 @@ def test_matrix_free_solve_routes_on_the_operator(bicgstab, nonsym, monkeypatch)
     called = []
     monkeypatch.setattr(linalg, "brandt_cg_solve_host", lambda op, h: called.append("cg"))
     monkeypatch.setattr(linalg, "brandt_bicgstab_solve_host", lambda op, h: called.append("bicgstab"))
-    linalg.matrix_free_solve_host(op, torch.zeros(3))
+    # A float64 solve is one Krylov solve (a float32 one is followed by a
+    # correction solve on the float64 residual).
+    linalg.matrix_free_solve_host(op, torch.zeros(3, dtype=torch.float64))
     assert called == ["bicgstab" if nonsym else "cg"]
 
 

@@ -30,6 +30,13 @@ innermost loop that holds the reciprocal square roots (``MUFU.RSQ``) is
 found and its instructions per reciprocal square root, that is per pair,
 are printed with their opcodes.
 
+With ``--kernel residual`` the kernel in turns is ``residual_f64``
+instead (R = H + A X with a float32 A, float64 sums), at
+``chip_smoke.RESIDUAL_N`` unknowns with 1, 4 and 8 columns, beside the
+widened blocked route (its plain version) and the float32 ``addmm`` that
+reads the same bytes; ``--sass`` then reads ``residual_f64.cu`` and counts
+the loop that holds the float64 FMAs.
+
 The last line is a JSON summary.
 """
 
@@ -62,7 +69,7 @@ def load_kernels(name, root):
     return module
 
 
-def ptxas_report(module, source, sass_dir, label):
+def ptxas_report(module, source, sass_dir, label, marker="MUFU.RSQ"):
     """Compiles ``source`` with ``-Xptxas -v``; returns per-kernel rows of
     registers, spills, shared memory and the innermost MUFU loop."""
     obj = Path(sass_dir) / f"{label}.o"
@@ -87,7 +94,7 @@ def ptxas_report(module, source, sass_dir, label):
     (Path(sass_dir) / f"{label}.sass").write_text(sass)
     for fn, body in _sass_functions(sass):
         if fn in rows:
-            rows[fn].update(_inner_loop(body))
+            rows[fn].update(_inner_loop(body, marker))
     obj.unlink()
     return {_readable(fn): row for fn, row in rows.items()}
 
@@ -106,9 +113,10 @@ def _sass_functions(sass):
         yield name, lines
 
 
-def _inner_loop(lines):
-    """The shortest backward-branch span that holds a MUFU.RSQ: its
-    instructions, reciprocal square roots and opcode counts."""
+def _inner_loop(lines, marker="MUFU.RSQ"):
+    """The shortest backward-branch span that holds ``marker`` (a
+    reciprocal square root: one per pair): its instructions, the marker's
+    count and the opcode counts."""
     instrs, labels = [], {}
     pending = []
     for line in lines:
@@ -133,12 +141,12 @@ def _inner_loop(lines):
         if target is None or target > addr:
             continue
         span = [t for a, t in instrs if target <= a <= addr]
-        rsq = sum(1 for t in span if "MUFU.RSQ" in t)
+        rsq = sum(1 for t in span if marker in t)
         if rsq and (best is None or len(span) < len(best)):
             best = span
     if best is None:
         return {}
-    rsq = sum(1 for t in best if "MUFU.RSQ" in t)
+    rsq = sum(1 for t in best if marker in t)
     ops = collections.Counter(
         re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in best
     )
@@ -151,8 +159,50 @@ def _inner_loop(lines):
 
 
 def _readable(fn):
-    m = re.search(r"([a-z_]+_kernel)I([fd])Li(\d+)E", fn)
-    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {m.group(3)}>" if m else fn
+    m = re.search(r"([a-z_0-9]+_kernel)I([fd])Li(\d+)E", fn)
+    if m:
+        return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {m.group(3)}>"
+    m = re.search(r"([a-z_0-9]+_kernel)ILi(\d+)E", fn)
+    return f"{m.group(1)}<{m.group(2)}>" if m else fn
+
+
+def residual_turns(torch, chip_smoke, kernels, builds, rounds, summary):
+    """residual_f64 of every build that has it, held against the plain
+    version and timed in turns beside the widened route and the float32
+    addmm, at chip_smoke.RESIDUAL_N unknowns."""
+    n = chip_smoke.RESIDUAL_N
+    for k in (1, 4, 8):
+        A, X, H = chip_smoke._residual_inputs(torch, n, n, k, seed=77 + k)
+        ref = kernels.residual_f64_plain(A, X, H)
+        fns = {}
+        for label, module in builds.items():
+            if not hasattr(module, "residual_f64"):
+                continue
+            _, rel = chip_smoke._check_against_plain(
+                torch, f"{label} residual_f64 k={k}", torch.float64, module.residual_f64(A, X, H), ref
+            )
+            print(f"{label} residual_f64 n={n} k={k}: rel_err={rel:.3e}")
+            fns[label] = (lambda m: lambda: m.residual_f64(A, X, H))(module)
+        x32, h32 = X.float(), H.float()
+        fns["widened_blocks"] = lambda: kernels.residual_f64_plain(A, X, H)
+        fns["float32_addmm"] = lambda: torch.addmm(h32, A, x32)
+        order = list(fns) + list(fns)[::-1]
+        times = collections.defaultdict(list)
+        for _ in range(rounds):
+            for label in order:
+                times[label].append(chip_smoke._timed(torch, fns[label], 10))
+        bound = chip_smoke._residual_bound(n, n, k)
+        for label, ms in times.items():
+            mean = sum(ms) / len(ms)
+            print(
+                f"turns residual_f64 n={n} k={k} {label}: mean_ms={mean:.4f} "
+                f"turns={[round(m, 4) for m in ms]} bound_ms={bound[0]:.4f} ({bound[1]}) "
+                f"share_of_bound={bound[0] / mean:.3f}"
+            )
+            summary["times"].append(dict(kernel="residual_f64", k=k, build=label, mean_ms=mean,
+                                         turns_ms=ms, bound_ms=bound[0]))
+        del A, X, H, ref
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -161,6 +211,8 @@ def main():
                         help="another build to time beside this checkout")
     parser.add_argument("--rounds", type=int, default=1, help="A..Z Z..A passes per shape")
     parser.add_argument("--sass", metavar="DIR", help="write SASS and print ptxas counts")
+    parser.add_argument("--kernel", choices=("pair", "residual"), default="pair",
+                        help="the kernel to time in turns (default: biot_savart_pair)")
     args = parser.parse_args()
 
     import torch
@@ -189,7 +241,16 @@ def main():
             print(f"{name}: BUILD FAILED: {err}")
     roots = [(name, root) for name, root in roots if name in builds]
     summary = {"device": smi, "ptxas": {}, "times": []}
-    if args.sass:
+    if args.sass and args.kernel == "residual":
+        os.makedirs(args.sass, exist_ok=True)
+        for name, root in roots:
+            source = Path(root) / "superscreen_tpu_torch/csrc/residual_f64.cu"
+            if source.exists():
+                report = ptxas_report(builds[name], source, args.sass, f"{name}_residual", "DFMA")
+                summary["ptxas"][name] = report
+                for fn, row in report.items():
+                    print(f"ptxas {name} {fn}: {json.dumps(row)}")
+    elif args.sass:
         os.makedirs(args.sass, exist_ok=True)
         sources = [(name, Path(root) / "superscreen_tpu_torch/csrc/biot_savart_pair.cu")
                    for name, root in roots]
@@ -201,6 +262,10 @@ def main():
             for fn, row in report.items():
                 print(f"ptxas {label} {fn}: {json.dumps(row)}")
 
+    if args.kernel == "residual":
+        residual_turns(torch, chip_smoke, kernels, builds, args.rounds, summary)
+        print(json.dumps(summary))
+        return 0
     device = chip_smoke.four_ring_stack(st, chip_smoke.SITES_LARGE)
     meshes = list(device.meshes.values())
     n1, n2 = len(meshes[0].sites), len(meshes[1].sites)
