@@ -93,6 +93,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    copy (float32 within 1e-3 and high precision within 1e-5 of float64;
    float64 within 1e-2 of the JAX package's 1.804621 pH), then the closed
    layout through ``mutual_inductance_matrix``.
+12. The FFT inter-film coupling on phase 4's model: ``solve_many(coupling=
+   "fft")`` with phase 7's fields and five rounds, its streams within 2e-2
+   of each film's max|g| from phase 7's exact sweep (the JAX package's
+   test bar) and its residuals at most 1e-4, then ``solve(coupling="fft")``
+   at B = 1 against the sweep's point 7; one exact and one FFT round timed
+   in turns and profiled; the same two rounds on pairs of disks of the
+   shape of bench.py's payoff pair at ~12,000, ~30,000 and ~100,000 sites
+   per film and on the Huber susceptometer (B = 8, seeded streams and
+   currents); the constants of ``coupling="auto"``'s cost model fitted on
+   all five (the FFT round's device work from the stack's profile), and
+   each decision beside the measured faster mode (the package's must
+   agree wherever one mode is more than 1.25x faster).
+13. BASELINE config 5 (bench.py's scanning configuration, meshed by this
+   package): a mini SQUID (~2,000 sites) over a 6 um disk (~8,000 sites),
+   64 positions: the susceptibility scan in float32 (mirror symmetry
+   within 1e-2; positions 16, 32, 48 within 1e-5 of the same scan on
+   float64 copies of the meshes on the card), ``biot_savart_batch`` at the
+   scan's two shapes against its plain version, ``back_action=1`` at 16
+   positions, ``magnetometry_scan(screening=True)`` over a Pearl vortex;
+   ``imaging.invert_field_map`` of a 192 x 192 map of a solved ring
+   against its stream (the JAX package's test bars); and
+   ``vortex_energy_landscape`` on a ~15,000-site disk, the self-energy at
+   one site within 1e-5 of a vortex solve there.
+
+Phases 2-11 hold ``coupling="auto"`` to the exact pairwise coupling
+(SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
+exact coupling kernels, which the card's cost model may trade for the FFT
+transfer at their sizes.  Phase 12 drives the FFT coupling.
 
 Phase 1 also runs residual_f64 (R = H + A X, a float32 A with float64
 right-hand sides and sums) against its plain version at 16,768 unknowns
@@ -198,6 +226,36 @@ POLISHED_STREAM_REL_MAX = STREAM_REL_MAX
 HP_MUTUAL_TOL = 1e-5
 JAX_HUBER_MUTUAL_PH = 1.804621
 JAX_HUBER_TOL = 1e-2
+# Phase 12: FFT against exact streams (the JAX package's own test bar,
+# tests/test_solve_coupling.py).
+FFT_STREAM_REL_MAX = 2e-2
+# The pairs of disks the coupling rounds are timed on (sites per film; the
+# largest is bench.py's fft_coupling_payoff), and their batch.  Where one
+# coupling mode is more than AUTO_TIE times faster, coupling="auto" must
+# pick it.
+SITES_PAIRS = (12000, 30000, 100000)
+PAYOFF_B = 8
+AUTO_TIE = 1.25
+# The JAX package's cost-model constants (superscreen_tpu/sweep.py:1232-
+# 1244, fitted on a TPU v5e), for the decision it would take here.
+JAX_COST_MODEL = (9.0e-9, 2.0e-6, 8.0e-5)
+# Phase 13: BASELINE config 5 (bench.py _scanning_config): 64 positions on
+# linspace(-8, 8), height 1.0; the mirror-symmetry and float32-against-
+# float64 bars and the JAX package's figures beside them (BENCH_DETAIL_r05
+# scanning_sweep, its own mesher); the back-action batch, the imaging map,
+# the landscape film and its self-energy bar.
+SCAN_B = 64
+SCAN_SQUID_POINTS = 2000
+SCAN_SAMPLE_POINTS = 8000
+SCAN_CHECK = (16, 32, 48)
+MIRROR_MAX = 1e-2
+JAX_MIRROR = 1.165e-3
+SCAN_F64_MAX = 1e-5
+JAX_SCAN_F64 = 1.044e-6
+BACK_ACTION_B = 16
+IMAGING_SIDE = 192
+LANDSCAPE_POINTS = 15000
+LANDSCAPE_TOL = 1e-5
 # The torch device of the sweep phases.
 CARD = "cuda"
 
@@ -649,7 +707,7 @@ def _profile(torch, run, label):
     warm up and once under torch.profiler: prints its wall time (profiled),
     the device time (the kernels' summed self time), the device's idle
     share of the wall, and the kernels that take the most device time, with
-    their launch counts."""
+    their launch counts.  Returns the device time in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm
@@ -669,6 +727,7 @@ def _profile(torch, run, label):
             f"{label}   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({e.self_device_time_total / 1e3 / device_ms:6.1%}) x{e.count:<6d} {e.key[:90]}"
         )
+    return device_ms
 
 
 def _stream_error(solutions, reference):
@@ -882,6 +941,14 @@ def _environ(**values):
                 os.environ[key] = value
 
 
+def _exact_coupling():
+    """Inside the block ``coupling="auto"`` resolves to the exact pairwise
+    coupling (the threshold override set beyond any mesh): phases 2-11
+    measure and check the exact coupling kernels, which the card's cost
+    model may not pick at their sizes."""
+    return _environ(SUPERSCREEN_TPU_FFT_COUPLING_MIN_N=str(2**62))
+
+
 @contextlib.contextmanager
 def _float32_residuals():
     """Inside the block the refinement residual of a float32 system is the
@@ -962,7 +1029,8 @@ def _check_sweep_residuals(torch, model, result, label, film_data=None, circulat
 def phase_sweep(torch, st, cuda_kernels, model, lu_solutions):
     """The B-point sweep at full width on phase 4's model (the uncut
     27,000-site stack, low-memory LU, float32): eight fields, ITERATIONS
-    coupling rounds.  Returns the launch counts of one sweep."""
+    coupling rounds.  Returns the launch counts of one sweep and its
+    result."""
     fields = [st.sources.ConstantField(v) for v in SWEEP_FIELDS]
     B = len(fields)
     kwargs = dict(model=model, applied_fields=fields, iterations=ITERATIONS)
@@ -1068,7 +1136,7 @@ def phase_sweep(torch, st, cuda_kernels, model, lu_solutions):
     _time_q_apply(
         torch, "phase7 self-field shape", next(iter(model.device.meshes.values())).sites, B + 1
     )
-    return launches
+    return launches, result
 
 
 def _weak_spot(x, y, x0=0.0, y0=0.0, sigma=2.0, depth=0.5, base=1.0):
@@ -2030,6 +2098,550 @@ def phase_huber(torch, st, cuda_kernels):
             _require(off <= JAX_HUBER_TOL, f"huber against the JAX package {off:.3e}")
 
 
+def _round_data(torch, model_data=None, device=None, grids=None):
+    """Per-film stand-ins of ``FilmSweepData`` with what one coupling round
+    reads (sites, weights, height, FFT grid), from a model's film data or
+    from a bare meshed ``device``."""
+    from types import SimpleNamespace
+
+    if model_data is not None:
+        return {
+            name: SimpleNamespace(sites=d.sites, weights=d.weights, z0=d.z0, fft_grid=grids[name])
+            for name, d in model_data.items()
+        }
+    out = {}
+    for name, mesh in device.meshes.items():
+        out[name] = SimpleNamespace(
+            sites=torch.as_tensor(mesh.sites, dtype=torch.float32, device=CARD),
+            weights=torch.as_tensor(mesh.vertex_areas, dtype=torch.float32, device=CARD),
+            z0=float(device.layers[device.films[name].layer].z0),
+            fft_grid=grids[name],
+        )
+    return out
+
+
+def _time_rounds(torch, cuda_kernels, data, streams, Js, label, profile=False):
+    """One exact and one FFT coupling round timed by CUDA events (in
+    turns), with their launch counts; with ``profile`` also ITERATIONS
+    rounds of each under torch.profiler.  Returns the two times in ms,
+    and with ``profile`` the device ms of one FFT round ("fft_device")."""
+    from superscreen_tpu_torch.sweep import _coupling_round
+
+    films = list(data)
+    Hz = {name: torch.zeros_like(streams[name]) for name in films}
+
+    def run(coupling):
+        return _coupling_round(data, films, streams, Js, Hz, coupling)
+
+    counts = {}
+    for coupling in ("exact", "fft"):
+        _reset_launches(cuda_kernels)
+        run(coupling)
+        counts[coupling] = dict(cuda_kernels.LAUNCHES)
+    _require(counts["fft"]["biot_savart_batch"] == 0, counts)
+    _require(counts["exact"]["biot_savart_batch"] == len(films) * (len(films) - 1), counts)
+    times = {"exact": [], "fft": []}
+    for coupling in ("exact", "fft", "fft", "exact"):
+        times[coupling].append(_timed(torch, lambda: run(coupling), 5))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    print(
+        f"{label}: one coupling round exact {ms['exact']:.3f} ms "
+        f"{[round(t, 3) for t in times['exact']]} (biot_savart_batch launches "
+        f"{counts['exact']['biot_savart_batch']}), FFT {ms['fft']:.3f} ms "
+        f"{[round(t, 3) for t in times['fft']]} (cuFFT, gathers, transfer; "
+        f"{ms['exact'] / ms['fft']:.2f}x)"
+    )
+    if profile:
+        for coupling in ("fft", "exact"):
+            def rounds(coupling=coupling):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ITERATIONS):
+                    run(coupling)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            device_ms = _profile(
+                torch, rounds, f"{label} profile of {ITERATIONS} {coupling} rounds"
+            )
+            if coupling == "fft":
+                ms["fft_device"] = device_ms / ITERATIONS
+    return ms
+
+
+def phase_fft(torch, st, cuda_kernels, model, exact):
+    """Phase 12: the FFT inter-film coupling.  (a) Phase 4's model (27k
+    stack, low-memory LU, float32): solve_many(coupling="fft") with phase
+    7's fields and ITERATIONS rounds against phase 7's exact sweep, then
+    solve(coupling="fft") at B = 1; (b) pairs of disks of bench.py's
+    payoff shape at SITES_PAIRS sites per film and the Huber
+    susceptometer: one exact round against one FFT round each; (c) the
+    cost-model constants of coupling="auto" fitted on (a) and (b), and
+    each decision beside the measured faster mode.  Returns the launch
+    counts of the FFT sweep and the cells where the package's decision
+    loses by more than AUTO_TIE."""
+    from superscreen_tpu_torch import sweep
+    from superscreen_tpu_torch.ops import fft_coupling
+
+    device = model.device
+    films = list(device.films)
+    fields = [st.sources.ConstantField(v) for v in SWEEP_FIELDS]
+    B = len(fields)
+    kwargs = dict(model=model, applied_fields=fields, iterations=ITERATIONS, coupling="fft")
+    model.fft_grids = None
+    grids, build_s = _wall(
+        torch, lambda: fft_coupling.build_film_grid_data(device, model.torch_device)
+    )
+    model.fft_grids = grids
+    G = grids[films[0]].kmag.shape[0]
+    sizes = [len(device.meshes[name].sites) for name in films]
+    print(
+        f"phase12 27k stack: G={G} (predicted {sweep._predict_fft_grid(device)}), grid build "
+        f"(cold, host) {build_s:.3f} s, sites {sizes}"
+    )
+    _reset_launches(cuda_kernels)
+    result, cold_s = _sweep(torch, st, **kwargs)
+    launches = dict(cuda_kernels.LAUNCHES)
+    print(f"phase12 launches of one FFT sweep (B={B}, iterations={ITERATIONS}): {launches}")
+    _require(launches["biot_savart_batch"] == 0 and launches["biot_savart_pair"] == 0, launches)
+    _require(launches["q_apply"] == len(films), launches)
+    _require(launches["residual_f64"] == 3 * len(films), launches)
+    for arrays in (result.streams, result.current_densities, result.other_fields):
+        _require(all(np.all(np.isfinite(a)) for a in arrays.values()), "non-finite FFT sweep")
+    _check_sweep_residuals(torch, model, result, "phase12 FFT sweep")
+    # Against max|g| of each film over the sweep (the bar), and per point.
+    err = max(
+        float(np.abs(result.streams[name] - g).max() / np.abs(g).max())
+        for name, g in exact.streams.items()
+    )
+    per_point = _sweep_stream_error(result, exact)
+    print(
+        f"phase12 FFT sweep against phase 7's exact sweep: max stream difference {err:.3e} of "
+        f"each film's max|g| (limit {FFT_STREAM_REL_MAX:.0e}, the JAX package's test bar); "
+        f"{per_point:.3e} of the point's own max|g| at the worst point"
+    )
+    _require(err <= FFT_STREAM_REL_MAX, f"FFT against exact {err:.3e}")
+    times = {"fft": [], "exact": []}
+    for coupling in ("fft", "exact", "exact", "fft"):
+        times[coupling].append(_sweep(torch, st, **{**kwargs, "coupling": coupling})[1])
+    print(
+        f"phase12 solve_many wall: FFT cold_s={cold_s:.4f} (grids cached), warm "
+        f"{np.mean(times['fft']):.4f} s {[round(t, 4) for t in times['fft']]}; exact warm "
+        f"{np.mean(times['exact']):.4f} s {[round(t, 4) for t in times['exact']]} in turns"
+    )
+    solutions, solve_s = _wall(
+        torch,
+        lambda: st.solve(model=model, applied_field=fields[-1], iterations=ITERATIONS,
+                         coupling="fft", torch_device=CARD),
+    )
+    _check_residuals(torch, model, solutions[-1], "phase12 FFT solve()")
+    err_solve = max(
+        float(np.abs(result.streams[name][B - 1] - fs.stream).max() / np.abs(fs.stream).max())
+        for name, fs in solutions[-1].film_solutions.items()
+    )
+    print(
+        f"phase12 FFT solve() at B=1: {solve_s:.4f} s; FFT sweep point {B - 1} against it "
+        f"{err_solve:.3e} (limit {STREAM_REL_MAX:.0e})"
+    )
+    _require(err_solve <= STREAM_REL_MAX, f"FFT sweep against FFT solve() {err_solve:.3e}")
+    # The coupling alone, on the sweep's final streams and currents.
+    dev = dict(device=CARD)
+    streams = {n: torch.as_tensor(result.streams[n], **dev) for n in films}
+    Js = {n: torch.as_tensor(result.current_densities[n], **dev) for n in films}
+    stack = _time_rounds(
+        torch, cuda_kernels, _round_data(torch, model.film_data, grids=grids), streams, Js,
+        f"phase12 27k stack, B={B}", profile=True,
+    )
+    del streams, Js
+    wrong = _fit_auto(torch, st, cuda_kernels, ("27k stack", sizes, G, stack, True))
+    decision = sweep._resolve_auto_coupling(model, films, ITERATIONS)
+    print(f"phase12 the package's auto decision on the 27k stack: {decision}")
+    return launches, wrong
+
+
+def _fit_auto(torch, st, cuda_kernels, stack_cell):
+    """Phase 12 (b) and (c): one exact and one FFT round on each layout,
+    the cost model fitted on them and ``stack_cell`` (label, sizes, G,
+    measured ms, distinct heights), and each decision of coupling="auto"
+    beside the measured faster mode.  Returns the cells where the
+    package's decision loses by more than AUTO_TIE."""
+    from superscreen_tpu_torch import sweep
+    from superscreen_tpu_torch.ops import fft_coupling
+    from superscreen_tpu_torch.squids import mutuals
+
+    dev = dict(device=CARD)
+    # (b) Pairs of disks of the payoff pair's shape at three sizes, and the
+    # Huber susceptometer's four films, on seeded streams and currents.
+    cells = [stack_cell]
+    rng = np.random.default_rng(7)
+    layouts = [(f"pair of {n} sites", lambda n=n: _payoff_pair(st, n)) for n in SITES_PAIRS]
+    layouts.append(("huber", lambda: _huber_layout(mutuals)))
+    for label, make in layouts:
+        layout, mesh_s = _wall(torch, make)
+        layout_grids, layout_build_s = _wall(
+            torch, lambda: fft_coupling.build_film_grid_data(layout, CARD)
+        )
+        layout_sizes = [len(m.sites) for m in layout.meshes.values()]
+        layout_G = next(iter(layout_grids.values())).kmag.shape[0]
+        print(
+            f"phase12 {label}: sites {layout_sizes}, meshed in {mesh_s:.3f} s, G={layout_G} "
+            f"(predicted {sweep._predict_fft_grid(layout)}), grid build {layout_build_s:.3f} s"
+        )
+        _require(sweep._predict_fft_grid(layout) == layout_G, f"{label}: predicted grid")
+        streams = {
+            n: torch.as_tensor(rng.standard_normal((PAYOFF_B, k)), dtype=torch.float32, **dev)
+            for n, k in zip(layout.meshes, layout_sizes)
+        }
+        Js = {
+            n: torch.as_tensor(rng.standard_normal((PAYOFF_B, k, 2)), dtype=torch.float32, **dev)
+            for n, k in zip(layout.meshes, layout_sizes)
+        }
+        ms = _time_rounds(
+            torch, cuda_kernels, _round_data(torch, device=layout, grids=layout_grids), streams,
+            Js, f"phase12 {label}, B={PAYOFF_B}",
+        )
+        z0s = [layout.layers[film.layer].z0 for film in layout.films.values()]
+        cells.append((label, layout_sizes, layout_G, ms, len(set(z0s)) == len(z0s)))
+        del layout, layout_grids, streams, Js
+    # (c) The cost model: exact ms = A * (site pairs) + E * (ordered film
+    # pairs), fitted on all cells; FFT ms = n_films * max(F, C * G^2 log2 G):
+    # F, the launch floor per film, fitted on all cells, C from the device
+    # time of the stack's FFT rounds (the first cell, profiled).
+    exact_fit = _fit_nonnegative(
+        [[sum(n) ** 2 - sum(k * k for k in n), len(n) * (len(n) - 1)] for _, n, *_ in cells],
+        [ms["exact"] for _, _, _, ms, _ in cells],
+    )
+    per_film = np.array([len(n) / ms["fft"] for _, n, _, ms, _ in cells])
+    floor = float(per_film.sum() / (per_film @ per_film))  # relative least squares
+    _, n0, g0, ms0, _ = cells[0]
+    device_coef = ms0["fft_device"] / (len(n0) * g0 * g0 * np.log2(g0))
+    fit = (*exact_fit, floor, device_coef)
+    package = (
+        sweep._EXACT_MS_PER_PAIR_SITE2, sweep._EXACT_MS_PER_FILM_PAIR, sweep._FFT_MS_PER_FILM,
+        sweep._FFT_DEVICE_MS_PER_GRID_UNIT,
+    )
+    names = ("_EXACT_MS_PER_PAIR_SITE2", "_EXACT_MS_PER_FILM_PAIR", "_FFT_MS_PER_FILM",
+             "_FFT_DEVICE_MS_PER_GRID_UNIT")
+    print(
+        f"phase12 fitted cost model on {len(cells)} cells (B={PAYOFF_B}): "
+        + " ".join(f"{k}={v:.4g}" for k, v in zip(names, fit))
+        + " (in the package: " + ", ".join(f"{v:.4g}" for v in package) + ")"
+    )
+    # Each decision beside the measured faster mode.  The package's must
+    # agree wherever one mode is more than AUTO_TIE faster.  (Films that
+    # share a height are exact whatever the cost: the FFT transfer needs
+    # dz > 0.  Their rounds are timed for the fit only.)
+    wrong = []
+    for label, n, g, ms, distinct in cells:
+        measured = "fft" if ms["fft"] < ms["exact"] else "exact"
+        for model_name, predict in (
+            ("this run's fit", lambda n, g: _port_cost_ms(fit, n, g)),
+            ("the package's constants", sweep._coupling_round_ms),
+            ("the JAX package's TPU v5e constants", lambda n, g: _jax_cost_ms(n, g)),
+        ):
+            pred = predict(n, g)
+            choice = "fft" if pred["fft"] < pred["exact"] else "exact"
+            print(
+                f"phase12 auto decision, {label}, {model_name}: exact {pred['exact']:.3f} ms "
+                f"(measured {ms['exact']:.3f}), fft {pred['fft']:.3f} ms (measured "
+                f"{ms['fft']:.3f}) -> {choice}; measured faster: {measured}"
+            )
+        if not distinct:
+            print(f"phase12 auto decision, {label}: exact (films share a height)")
+            continue
+        choice = sweep._coupling_round_ms(n, g)
+        choice = "fft" if choice["fft"] < choice["exact"] else "exact"
+        ratio = max(ms["exact"], ms["fft"]) / min(ms["exact"], ms["fft"])
+        if choice != measured and ratio > AUTO_TIE:
+            wrong.append((label, choice, measured, round(ratio, 3)))
+    # Where auto switches for two disks of the pairs' shape, the grid
+    # interpolated in sqrt(sites) between the measured pairs.
+    pair_n = [float(np.mean(n)) for label, n, *_ in cells if label.startswith("pair")]
+    pair_G = [g for label, _, g, *_ in cells if label.startswith("pair")]
+    for model_name, predict in (
+        ("this run's fit", lambda n, g: _port_cost_ms(fit, n, g)),
+        ("the package's constants", sweep._coupling_round_ms),
+    ):
+        def picks_fft(n):
+            g = fft_coupling.friendly_grid_size(
+                int(np.interp(np.sqrt(n), np.sqrt(pair_n), pair_G))
+            )
+            pred = predict([n, n], g)
+            return pred["fft"] < pred["exact"]
+
+        first = next((n for n in range(1000, 200001, 500) if picks_fft(n)), None)
+        print(f"phase12 two disks of the pairs' shape: {model_name} pick fft from {first} "
+              f"sites per film")
+    print(f"phase12 package decisions against the measured faster mode (ties within "
+          f"{AUTO_TIE}x excepted): {'all agree' if not wrong else wrong}")
+    return wrong
+
+
+def _payoff_pair(st, sites):
+    """Two disks of bench.py's fft_coupling_payoff shape (radii 7.5 and 6.0,
+    heights 0 and 1) meshed to about ``sites`` sites each."""
+    layers = [st.Layer("layer0", Lambda=1.0, z0=0), st.Layer("layer1", Lambda=0.5, z0=1)]
+    films = [
+        st.Polygon("f0", layer="layer0", points=st.geometry.circle(7.5, points=120)),
+        st.Polygon("f1", layer="layer1", points=st.geometry.circle(6.0, points=110)),
+    ]
+    pair = st.Device("fftpair", layers=layers, films=films)
+    pair.make_mesh(min_points=sites)
+    return pair
+
+
+def _huber_layout(mutuals):
+    """The Huber susceptometer with terminals at its published edge length
+    (phase 11's mesh)."""
+    device = mutuals.SQUID_LAYOUTS["huber"](with_terminals=True)
+    device.make_mesh(max_edge_length=mutuals.MAX_EDGE_LENGTHS["huber"], smooth=100)
+    return device
+
+
+def _fit_nonnegative(rows, y):
+    """Non-negative least squares of ``rows @ c = y`` in relative terms
+    (each row divided by its ``y``), for two columns: both, or the one
+    column alone that fits the better."""
+    M = np.asarray(rows, dtype=float) / np.asarray(y, dtype=float)[:, None]
+    ones = np.ones(len(y))
+    coef = np.linalg.lstsq(M, ones, rcond=None)[0]
+    if np.all(coef >= 0):
+        return tuple(float(c) for c in coef)
+    singles = [float(M[:, j] @ ones / (M[:, j] @ M[:, j])) for j in (0, 1)]
+    errs = [np.abs(M[:, j] * c - 1).max() for j, c in enumerate(singles)]
+    j = int(np.argmin(errs))
+    return (singles[0], 0.0) if j == 0 else (0.0, singles[1])
+
+
+def _port_cost_ms(consts, sizes, G):
+    """The port's per-round cost model (sweep._coupling_round_ms) with the
+    constants ``(A, E, F, C)``."""
+    n = len(sizes)
+    return {
+        "exact": consts[0] * (sum(sizes) ** 2 - sum(k * k for k in sizes)) + consts[1] * n * (n - 1),
+        "fft": n * max(consts[2], consts[3] * G * G * np.log2(G)),
+    }
+
+
+def _jax_cost_ms(sizes, G):
+    """The JAX package's per-round cost model with its TPU constants."""
+    exact, grid, site = JAX_COST_MODEL
+    return {
+        "exact": exact * (sum(sizes) ** 2 - sum(k * k for k in sizes)),
+        "fft": grid * len(sizes) * G * G * np.log2(G) + site * sum(sizes),
+    }
+
+
+def _scanning_devices(st, dtype="float32"):
+    """BASELINE config 5 (bench.py _scanning_config), meshed by this
+    package: the mini SQUID and the 6 um disk sample."""
+    squid = st.Device(
+        "mini_squid",
+        layers=[st.Layer("sq", Lambda=0.3, z0=0)],
+        films=[st.Polygon("fc_ring", layer="sq", points=st.geometry.circle(1.5, points=80))],
+        holes=[st.Polygon("fc_hole", layer="sq", points=st.geometry.circle(0.9, points=50))],
+        abstract_regions=[st.Polygon("pl", layer="sq", points=st.geometry.circle(0.4, points=48))],
+        length_units="um",
+        solve_dtype=dtype,
+    )
+    squid.make_mesh(min_points=SCAN_SQUID_POINTS, smooth=5)
+    sample = st.Device(
+        "sample",
+        layers=[st.Layer("s", Lambda=0.1, z0=0)],
+        films=[st.Polygon("disk", layer="s", points=st.geometry.circle(6.0, points=160))],
+        length_units="um",
+        solve_dtype=dtype,
+    )
+    sample.make_mesh(min_points=SCAN_SAMPLE_POINTS)
+    return squid, sample
+
+
+def _scan_kernel_row(torch, kernels, cuda_kernels, label, src_sites, areas, J, dst, dz2, launches):
+    """biot_savart_batch at a scanning shape against its plain version,
+    timed beside its bound (B = 1)."""
+    out = kernels.biot_savart_film_to_film_dz2(src_sites, areas, J, dst, dz2)
+    abs_err, rel = _check_against_plain(
+        torch, label, torch.float32, out, kernels.biot_savart_plain(src_sites, areas, J[None], dst, dz2)[0]
+    )
+    ms = _timed(torch, lambda: kernels.biot_savart_film_to_film_dz2(src_sites, areas, J, dst, dz2), 10)
+    plain_ms = _timed(torch, lambda: kernels.biot_savart_plain(src_sites, areas, J[None], dst, dz2), 3)
+    bound = _bound("biot_savart_batch", torch.float32, dst.shape[0], src_sites.shape[0], 1)
+    print(
+        f"phase13 {label} (biot_savart_batch, {src_sites.shape[0]} sites -> {dst.shape[0]} points, "
+        f"B=1): max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL['float32']:.0e}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound, ms)}; launches per scan "
+        f"{launches}"
+    )
+
+
+def phase_scanning(torch, st, kernels, cuda_kernels):
+    """Phase 13: BASELINE config 5 (susceptibility scan at 64 positions,
+    float32, against the port's own float64 run; back action; magnetometry
+    with screening over a Pearl vortex), the current imaging of a solved
+    ring, and a vortex energy landscape.  Returns the launch counts of the
+    scan."""
+    from superscreen_tpu_torch.ops import interp
+    from superscreen_tpu_torch.squids import scanning
+
+    squid, sample = _scanning_devices(st)
+    sq_n, s_n = len(squid.meshes["fc_ring"].sites), len(sample.meshes["disk"].sites)
+    print(f"phase13 config 5: SQUID {sq_n} sites, sample {s_n} sites, B={SCAN_B}")
+    positions = np.column_stack([np.linspace(-8.0, 8.0, SCAN_B), np.zeros(SCAN_B)])
+    drive = dict(applied_field=st.sources.ConstantField(0), circulating_currents={"fc_hole": "1 mA"},
+                 field_units="mT", current_units="mA", torch_device=CARD)
+    squid_solution = st.solve(squid, **drive)[-1]
+    model = st.factorize_model(device=sample, current_units="uA", torch_device=CARD)
+    scan = dict(squid_solution=squid_solution, positions=positions, squid_height=1.0,
+                pickup_loop="pl", I_fc="1 mA", torch_device=CARD)
+    _reset_launches(cuda_kernels)
+    M, cold_s = _wall(torch, lambda: scanning.susceptibility_scan(sample_model=model, **scan))
+    launches = dict(cuda_kernels.LAUNCHES)
+    _require(launches["biot_savart_batch"] == 1, launches)
+    _require(M.shape == (SCAN_B,) and bool(np.all(np.isfinite(M))), "scan output")
+    warm = [_wall(torch, lambda: scanning.susceptibility_scan(sample_model=model, **scan))[1]
+            for _ in range(3)]
+    mirror = float(np.abs(M - M[::-1]).max() / np.abs(M).max())
+    print(
+        f"phase13 susceptibility scan: launches {launches}; cold {cold_s:.4f} s, warm "
+        f"{[round(t, 4) for t in warm]} s = {min(warm) / SCAN_B * 1e3:.3f} ms per position; "
+        f"M range [{M.min():.4f}, {M.max():.4f}] Phi_0/A; mirror symmetry {mirror:.3e} "
+        f"(limit {MIRROR_MAX:.0e}; the JAX package's {JAX_MIRROR:.3e}, its own mesher)"
+    )
+    _require(mirror <= MIRROR_MAX, f"mirror symmetry {mirror:.3e}")
+    _profile(torch, lambda: _wall(torch, lambda: scanning.susceptibility_scan(
+        sample_model=model, **scan))[1], "phase13 profile of the warm scan")
+    # The float64 run on the card of the same meshes, at three positions.
+    squid64, sample64 = squid.copy(), sample.copy()
+    squid64.solve_dtype = sample64.solve_dtype = "float64"
+    squid64_solution = st.solve(squid64, **drive)[-1]
+    idx = list(SCAN_CHECK)
+    M64 = scanning.susceptibility_scan(
+        sample64, **{**scan, "squid_solution": squid64_solution, "positions": positions[idx]}
+    )
+    f64_err = float(np.abs(M[idx] - M64).max() / np.abs(M64).max())
+    print(
+        f"phase13 float32 against the card's float64 at positions {idx}: {f64_err:.3e} "
+        f"(limit {SCAN_F64_MAX:.0e}; the JAX package's {JAX_SCAN_F64:.3e})"
+    )
+    _require(f64_err <= SCAN_F64_MAX, f"scan f32 against f64 {f64_err:.3e}")
+    # The kernel at the scan's shapes.
+    dev = dict(dtype=torch.float32, device=CARD)
+    sq_mesh, s_mesh = squid.meshes["fc_ring"], sample.meshes["disk"]
+    sq_sites = torch.as_tensor(sq_mesh.sites, **dev)
+    sq_areas = torch.as_tensor(sq_mesh.vertex_areas, **dev)
+    sq_J = torch.as_tensor(squid_solution.film_solutions["fc_ring"].current_density, **dev)
+    pts = torch.as_tensor((s_mesh.sites[None] - positions[:, None]).reshape(-1, 2), **dev)
+    _scan_kernel_row(torch, kernels, cuda_kernels, "applied field maps", sq_sites, sq_areas, sq_J,
+                     pts, 1.0, 1)
+    s_sites = torch.as_tensor(s_mesh.sites, **dev)
+    s_areas = torch.as_tensor(s_mesh.vertex_areas, **dev)
+    s_J = torch.as_tensor(np.random.default_rng(3).standard_normal((s_n, 2)), **dev)
+    _scan_kernel_row(torch, kernels, cuda_kernels, "back action, per position", s_sites, s_areas,
+                     s_J, sq_sites + torch.as_tensor(positions[0], **dev), 1.0,
+                     "2 x B per round")
+    # Back action at B = 16.
+    sub = positions[:: SCAN_B // BACK_ACTION_B]
+    _reset_launches(cuda_kernels)
+    M_back, back_s = _wall(torch, lambda: scanning.susceptibility_scan(
+        sample_model=model, **{**scan, "positions": sub}, back_action=1))
+    back_launches = dict(cuda_kernels.LAUNCHES)
+    M_first = M[:: SCAN_B // BACK_ACTION_B]
+    change = float(np.abs(M_back - M_first).max() / np.abs(M_first).max())
+    print(
+        f"phase13 back_action=1 at B={len(sub)}: {back_s:.4f} s, launches {back_launches}; "
+        f"relative change from the first-order map {change:.3e}"
+    )
+    _require(bool(np.all(np.isfinite(M_back))), "back-action output")
+    _require(back_launches["biot_savart_batch"] == 1 + 2 * len(sub), back_launches)
+    # Magnetometry with the SQUID's screening over a Pearl vortex.
+    vortex_solution = st.solve(sample, vortices=[st.Vortex(x=0.0, y=0.0, film="disk")],
+                               current_units="uA", torch_device=CARD)[-1]
+    _reset_launches(cuda_kernels)
+    Phi, mag_s = _wall(torch, lambda: scanning.magnetometry_scan(
+        vortex_solution, positions=positions, squid_height=1.0, pickup_loop="pl",
+        squid_device=squid, screening=True, torch_device=CARD))
+    mag_launches = dict(cuda_kernels.LAUNCHES)
+    bare = scanning.magnetometry_scan(vortex_solution, positions=positions, squid_height=1.0,
+                                      pickup_loop="pl", squid_device=squid, torch_device=CARD)
+    mag_mirror = float(np.abs(Phi - Phi[::-1]).max() / np.abs(Phi).max())
+    print(
+        f"phase13 magnetometry over a Pearl vortex, screening=True, B={SCAN_B}: {mag_s:.4f} s, "
+        f"launches {mag_launches}; peak {Phi.max():.4e} Phi_0 (bare loop {bare.max():.4e}); "
+        f"mirror symmetry {mag_mirror:.3e}"
+    )
+    _require(bool(np.all(np.isfinite(Phi))), "magnetometry")
+    _require(mag_launches["biot_savart_batch"] == SCAN_B, mag_launches)
+    # Imaging: the 192^2 Bz map of a solved ring, inverted.
+    ring = st.Device(
+        "ring", layers=[st.Layer("base", Lambda=0.5, z0=0)],
+        films=[st.Polygon("ring", layer="base", points=st.geometry.circle(3, points=80))],
+        holes=[st.Polygon("hole", layer="base", points=st.geometry.circle(1.2, points=40))],
+        length_units="um",
+    )
+    ring.make_mesh(min_points=2500, smooth=5)
+    ring_solution = st.solve(ring, circulating_currents={"hole": "1 mA"}, current_units="mA",
+                             torch_device=CARD)[-1]
+    n, L, z = IMAGING_SIDE, 24.0, 0.8
+    xs = np.linspace(-L / 2, L / 2, n, endpoint=False)
+    dx = float(xs[1] - xs[0])
+    X, Y = np.meshgrid(xs, xs)
+    grid = np.column_stack([X.ravel(), Y.ravel()])
+    bz = ring_solution.field_at_position(grid, zs=z, units="mT", with_units=False).reshape(n, n)
+    bz_card = torch.as_tensor(bz, device=CARD)
+
+    def invert():
+        return st.imaging.invert_field_map(bz_card, dx, dx, z, field_units="mT",
+                                           length_units="um", current_units="mA")
+
+    (g_rec, jx, jy), inv_s = _wall(torch, invert)
+    inv_warm = [_wall(torch, invert)[1] for _ in range(3)]
+    inside = ring.films["ring"].contains_points(grid)
+    mesh = ring.meshes["ring"]
+    g_true = np.zeros(n * n)
+    g_true[inside] = interp.interp_linear(
+        mesh.spatial_index(CARD), ring_solution.film_solutions["ring"].stream, grid[inside], fill=0.0
+    ).cpu().numpy()
+    sel = inside.reshape(n, n)
+    g_true = g_true.reshape(n, n)
+    dg = np.abs((g_rec - g_rec[~sel].mean()) - g_true)[sel] / np.abs(g_true[sel]).max()
+    print(
+        f"phase13 invert_field_map of a {n}x{n} map ({bz_card.dtype}): cold {inv_s * 1e3:.2f} ms, warm "
+        f"{[round(t * 1e3, 3) for t in inv_warm]} ms; against the solved "
+        f"stream median {np.median(dg):.3e}, 95th percentile {np.percentile(dg, 95):.3e}, max "
+        f"{dg.max():.3e} (limits 0.02, 0.06, 0.12: tests/test_imaging.py)"
+    )
+    _require(np.median(dg) < 0.02 and np.percentile(dg, 95) < 0.06 and dg.max() < 0.12, "imaging")
+    # The vortex energy landscape of a dense film.
+    disk = st.Device(
+        "disk", layers=[st.Layer("L", Lambda=0.5, z0=0)],
+        films=[st.Polygon("disk", layer="L", points=st.geometry.circle(4.0, points=160))],
+        length_units="um",
+    )
+    disk.make_mesh(min_points=LANDSCAPE_POINTS, smooth=5)
+    _reset_launches(cuda_kernels)
+    landscape, ls_s = _wall(torch, lambda: st.vortex_energy_landscape(
+        disk, applied_field=st.sources.ConstantField(0.1), field_units="mT", current_units="mA",
+        torch_device=CARD))
+    ls_launches = dict(cuda_kernels.LAUNCHES)
+    k = int(np.argmin(np.linalg.norm(landscape.sites - [1.0, 0.5], axis=1)))
+    x, y = landscape.sites[k]
+    vortex = st.solve(disk, vortices=[st.Vortex(x=float(x), y=float(y), film="disk")],
+                      current_units="mA", torch_device=CARD)[-1]
+    g_core = float(vortex.film_solutions["disk"].stream[landscape.indices[k]])
+    expected = 0.5 * st.ureg(f"{g_core} Phi_0 * mA").to("eV").magnitude
+    ls_err = abs(landscape.self_energy[k] - expected) / abs(expected)
+    F = landscape.force([[1.0, 0.5], [3.0, 0.0]])
+    print(
+        f"phase13 vortex_energy_landscape on {len(disk.meshes['disk'].sites)} sites (dense): "
+        f"{ls_s:.3f} s, launches {ls_launches}; self-energy at ({x:.3f}, {y:.3f}) "
+        f"{landscape.self_energy[k]:.6e} eV against the vortex solve's {expected:.6e} eV: "
+        f"{ls_err:.3e} (limit {LANDSCAPE_TOL:.0e}); force there {F[0]} pN"
+    )
+    _require(ls_err <= LANDSCAPE_TOL, f"landscape self-energy {ls_err:.3e}")
+    _require(bool(np.all(np.isfinite(landscape.total(1.0)))), "landscape")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2057,18 +2669,22 @@ def main() -> int:
     rows = phase_kernels(torch, kernels, cuda_kernels, device)
     rows.update(phase_lowmem_kernels(torch, kernels, cuda_kernels, large))
     rows.update(phase_residual_kernel(torch, kernels, cuda_kernels))
-    launches = phase_solve(torch, st, cuda_kernels, device)
-    phase_accuracy(st)
-    model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
-    pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
-    sweep_launches = phase_sweep(torch, st, cuda_kernels, model, lu_solutions)
-    map_launches = phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions)
-    certify_launches = phase_certify(torch, st, cuda_kernels, model, large)
-    del model
-    phase_cg(torch, st, cuda_kernels, large, lu_solutions)
-    del large, device
-    transport_launches = phase_transport(torch, st, kernels, cuda_kernels)
-    phase_huber(torch, st, cuda_kernels)
+    with _exact_coupling():
+        launches = phase_solve(torch, st, cuda_kernels, device)
+        phase_accuracy(st)
+        model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
+        pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
+        sweep_launches, exact_sweep = phase_sweep(torch, st, cuda_kernels, model, lu_solutions)
+        map_launches = phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions)
+        certify_launches = phase_certify(torch, st, cuda_kernels, model, large)
+    fft_launches, auto_wrong = phase_fft(torch, st, cuda_kernels, model, exact_sweep)
+    del model, exact_sweep
+    with _exact_coupling():
+        phase_cg(torch, st, cuda_kernels, large, lu_solutions)
+        del large, device
+        transport_launches = phase_transport(torch, st, kernels, cuda_kernels)
+        phase_huber(torch, st, cuda_kernels)
+    scan_launches = phase_scanning(torch, st, kernels, cuda_kernels)
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches
@@ -2078,6 +2694,9 @@ def main() -> int:
         transport_launches,
     )
     _require(map_launches["biot_savart_batch"] > 0, map_launches)
+    _require(scan_launches["biot_savart_batch"] > 0, scan_launches)
+    _require(fft_launches["q_apply"] > 0 and fft_launches["residual_f64"] > 0, fft_launches)
+    _require(not auto_wrong, f"coupling='auto' against the measured faster mode: {auto_wrong}")
     _require(
         all(d["residual_f64"] > 0 for d in (sweep_launches, transport_launches, certify_launches)),
         (sweep_launches, transport_launches, certify_launches),

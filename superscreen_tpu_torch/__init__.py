@@ -7,26 +7,30 @@ and a position-dependent penetration depth, and the post-processing of a
 ``Solution`` (interpolation, fluxoids, currents through a path, fields and
 the vector potential anywhere in space, the mutual-inductance matrix), the
 float64 delivery paths (``solve_many(final_refine=...)``,
-``solve(high_precision=True)``, ``certify.certify_sweep``) and the SQUID
-gallery (``squids``): the
+``solve(high_precision=True)``, ``certify.certify_sweep``), the SQUID
+gallery and scanning SQUID microscopy (``squids``), exact or FFT
+inter-film coupling (``coupling="auto"``), current imaging (``imaging``)
+and vortex energy landscapes (``vortex_energy_landscape``): the
 same host layer (geometry, meshing, FEM operators) in NumPy, the film
 systems, the self-consistent coupling and the post-processing sums in
 PyTorch, and the pairwise kernels written by hand in CUDA C++ (``csrc/``).  This package imports neither JAX nor ``superscreen_tpu``.
 """
 
-from . import geometry, sources
+from . import geometry, imaging, sources
 from .convert import device_from_reference
-from .device import Device, Layer, Mesh, MeshOperators, Polygon
+from .device import Device, EdgeMesh, Layer, Mesh, MeshOperators, Polygon
 from .parameter import Constant, Parameter
 from .fluxoid import find_fluxoid_solution, make_fluxoid_polygons
 from .solution import FilmSolution, Fluxoid, Solution, Vortex
 from .solver import FactorizedModel, factorize_model, solve
 from .sweep import SweepResult, solve_many
 from .units import ureg
+from .vortices import VortexLandscape, vortex_energy_landscape
 
 __all__ = [
     "Constant",
     "Device",
+    "EdgeMesh",
     "FactorizedModel",
     "FilmSolution",
     "Fluxoid",
@@ -38,13 +42,16 @@ __all__ = [
     "Solution",
     "SweepResult",
     "Vortex",
+    "VortexLandscape",
     "device_from_reference",
     "factorize_model",
     "find_fluxoid_solution",
     "geometry",
+    "imaging",
     "make_fluxoid_polygons",
     "solve",
     "solve_many",
     "sources",
     "ureg",
+    "vortex_energy_landscape",
 ]

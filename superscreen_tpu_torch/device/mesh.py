@@ -11,7 +11,7 @@ and cached on the mesh, which every solution of a device shares.
 """
 
 from copy import deepcopy
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ import torch
 from ..ops import fem
 from ..ops import kernels
 from . import mesh_generation as mgen
+from .edge_mesh import EdgeMesh
 
 __all__ = ["Mesh", "MeshOperators"]
 
@@ -57,6 +58,14 @@ class Mesh:
         self.triangle_centroids = self.sites[self.elements].mean(axis=1)
         self.operators = MeshOperators.from_mesh(self) if build_operators else None
         self._spatial_index: Dict[str, object] = {}
+        self._edge_mesh = None
+
+    @property
+    def edge_mesh(self) -> EdgeMesh:
+        """The mesh's :class:`EdgeMesh` (built on first use)."""
+        if self._edge_mesh is None:
+            self._edge_mesh = EdgeMesh.from_mesh(self.sites, self.elements)
+        return self._edge_mesh
 
     @staticmethod
     def from_triangulation(
@@ -120,6 +129,18 @@ class Mesh:
         ]
         return np.stack(columns, axis=-1)
 
+    def stats(self) -> Dict[str, Union[int, float]]:
+        """A dictionary of information about the mesh."""
+        lengths = self.edge_mesh.edge_lengths
+        return dict(
+            num_sites=len(self.sites),
+            num_elements=len(self.elements),
+            min_edge_length=lengths.min(),
+            max_edge_length=lengths.max(),
+            min_vertex_area=self.vertex_areas.min(),
+            max_vertex_area=self.vertex_areas.max(),
+        )
+
     def closest_site(self, xy: Tuple[float, float]) -> int:
         """Index of the mesh site closest to ``(x, y)``."""
         offsets = self.sites - np.atleast_2d(xy)
@@ -137,6 +158,8 @@ class Mesh:
             build_operators=False,
         )
         clone.operators = deepcopy(self.operators)
+        if self._edge_mesh is not None:
+            clone._edge_mesh = self._edge_mesh.copy()
         return clone
 
     def smooth(self, iterations: int, build_operators: bool = True) -> "Mesh":

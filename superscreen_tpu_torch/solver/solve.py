@@ -4,8 +4,9 @@ Counterpart of ``superscreen_tpu/solver/solve.py`` on its device-resident
 path: :func:`factorize_model` builds and LU-factorizes every film system on
 the torch device, with the model's terminal currents, circulating currents
 and vortices; :func:`solve` runs the initial per-film solve plus
-``iterations`` rounds of exact self-consistent inter-film coupling and
-returns one :class:`Solution` per round.
+``iterations`` rounds of self-consistent inter-film coupling (exact or
+FFT, as :func:`superscreen_tpu_torch.solve_many` dispatches) and returns
+one :class:`Solution` per round.
 """
 
 import contextlib
@@ -23,7 +24,10 @@ from ..solution import FilmSolution, Solution, Vortex
 from ..sources import ConstantField
 from ..sweep import (
     FilmSweepData,
+    _attach_fft_grids,
+    _check_coupling,
     _get_sweep_data,
+    _resolve_coupling,
     _run_sweep_history,
     film_sweep_data,
     vortex_flux_quantum,
@@ -95,6 +99,8 @@ class FactorizedModel:
             (built on first use by
             :func:`superscreen_tpu_torch.solver.refine.get_hp_model`).
         hp_systems: On that twin, ``{film_name: HighPrecisionSystem}``.
+        fft_grids: ``{film_name: FilmGridData}`` of the FFT coupling
+            (built on first use by ``sweep._attach_fft_grids``).
     """
 
     device: Device
@@ -111,6 +117,7 @@ class FactorizedModel:
     film_data_vortices: tuple = ()
     hp_model: Optional["FactorizedModel"] = None
     hp_systems: Dict[str, object] = field(default_factory=dict)
+    fft_grids: Optional[Dict[str, object]] = None
 
     def set_circulating_currents(self, circulating_currents: Dict[str, float]) -> None:
         """Sets the circulating currents (floats in ``current_units``)
@@ -289,7 +296,8 @@ def solve(
 
     1. Solve each film given only the applied field.
     2. For ``iterations`` rounds, compute each film's screening field at
-       every other film (exact Biot-Savart) and re-solve.
+       every other film (exact Biot-Savart or the FFT transfer) and
+       re-solve.
 
     Args:
         device: The device to simulate (or provide ``model``).
@@ -321,9 +329,10 @@ def solve(
             in float64 with the float32 LU as preconditioner, float64
             current densities, self-fields and inter-film coupling.  The
             solutions hold float64 arrays.  A film solved matrix-free
-            raises.
-        coupling: ``"exact"`` or ``"auto"`` (which means exact here);
-            ``"fft"`` is not supported yet.
+            raises.  Forces ``coupling="exact"``.
+        coupling: ``"auto"`` (default), ``"exact"`` or ``"fft"``, as for
+            :func:`superscreen_tpu_torch.solve_many`, whose cost model
+            ``"auto"`` shares.
         torch_device: ``"cuda"`` (default; raises without a card) or
             ``"cpu"``.  A given ``model`` must live on this device.
 
@@ -338,10 +347,7 @@ def solve(
             "save_path and return_solutions=False need Solution.to_hdf5, which is not "
             "ported yet (ROADMAP item 9, host conveniences)."
         )
-    if coupling == "fft":
-        raise NotImplementedError("coupling='fft' is not supported yet; use 'exact'.")
-    if coupling not in ("auto", "exact"):
-        raise ValueError(f"coupling must be 'auto' or 'exact' (got {coupling!r}).")
+    _check_coupling(coupling)  # before the factorization, and with high_precision
     torch_device = resolve_torch_device(torch_device)
     if model is None:
         if device is None:
@@ -394,15 +400,20 @@ def solve(
         for name in films
     }
     coupled = len(films) >= 2 and iterations >= 1
+    coupling = "exact" if high_precision else _resolve_coupling(model, films, iterations, coupling)
     with highest_matmul_precision():
+        film_data = _get_sweep_data(solve_model)
+        if coupling == "fft":
+            film_data = _attach_fft_grids(model, film_data, films)
         gs, Js, selfs, others = _run_sweep_history(
-            _get_sweep_data(solve_model),
+            film_data,
             Hz,
             I_circ,
             vortex_flux_quantum(device, current_units),
             iterations if coupled else 0,
             2,
             check_inversion=check_inversion,
+            coupling=coupling,
         )
     gs, Js, selfs, others = (
         {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)

@@ -1,19 +1,22 @@
 """Batched parameter sweeps: :func:`solve_many` and the machinery behind
 it and behind :func:`solve`.
 
-Counterpart of ``superscreen_tpu/sweep.py`` on its exact-coupling path.
-A sweep over ``B`` parameter sets (applied fields, circulating currents,
-terminal currents, vortex amplitudes) reuses one factorization: the ``B``
-right-hand sides are solved at once against each film's LU factors, or
-matrix-free (CG, or BiCGStab for an inhomogeneous Lambda) for a film whose
-system is not materialized; hole, vortex and transport contributions are
-batched rank-one terms; and the self-consistent inter-film coupling runs
-as a Python loop of rounds, each an exact pairwise Biot-Savart exchange
-through the ``biot_savart_batch`` kernel (or ``biot_savart_pair`` with
-``SUPERSCREEN_TPU_PAIR_COUPLING=1``).  The self-field of a low-memory film
-is applied matrix-free through ``q_apply``, that of a film with terminals
-through the in-film Biot-Savart sum.  All tensors stay on the model's
-torch device; results come back to the host once per quantity.
+Counterpart of ``superscreen_tpu/sweep.py``.  A sweep over ``B``
+parameter sets (applied fields, circulating currents, terminal currents,
+vortex amplitudes) reuses one factorization: the ``B`` right-hand sides
+are solved at once against each film's LU factors, or matrix-free (CG, or
+BiCGStab for an inhomogeneous Lambda) for a film whose system is not
+materialized; hole, vortex and transport contributions are batched
+rank-one terms; and the self-consistent inter-film coupling runs as a
+Python loop of rounds.  A round is either an exact pairwise Biot-Savart
+exchange through the ``biot_savart_batch`` kernel (or ``biot_savart_pair``
+with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``), or the FFT transfer of
+:mod:`.ops.fft_coupling`; ``coupling="auto"`` picks one by a per-round
+cost model fitted on the card (:func:`_resolve_auto_coupling`).  The
+self-field of a low-memory film is applied matrix-free through
+``q_apply``, that of a film with terminals through the in-film
+Biot-Savart sum.  All tensors stay on the model's torch device; results
+come back to the host once per quantity.
 """
 
 import logging
@@ -78,6 +81,8 @@ class FilmSweepData:
             a terminal film, for its in-film Biot-Savart self-field.
         gtx_idx, gtx_w, gty_idx, gty_w: Its triangle gradients in gather
             form.
+        fft_grid: The film's :class:`ops.fft_coupling.FilmGridData` when
+            the sweep couples through the FFT transfer, else None.
         brandt_diag: ``(n,)`` ``C + q @ w`` at all sites (the Brandt
             kernel's diagonal times ``w``), set for the float64 film data
             of a high-precision model, whose self-field is
@@ -121,6 +126,7 @@ class FilmSweepData:
     gty_idx: Optional[torch.Tensor] = None
     gty_w: Optional[torch.Tensor] = None
     brandt_diag: Optional[torch.Tensor] = None
+    fft_grid: Optional[object] = None
 
 
 def vortex_flux_quantum(device, current_units: str) -> float:
@@ -425,11 +431,34 @@ def _solve_film_batch(
     return g, torch.stack([Jx, Jy], dim=-1)
 
 
-def _coupling_round(film_data: Dict[str, FilmSweepData], films: List[str], Js, Hz_applied):
-    """One exact inter-film coupling exchange over unordered film pairs:
-    two one-way ``biot_savart_batch`` passes per pair, or one
-    ``biot_savart_pair`` pass with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``.
-    Returns the field each film feels from all others, ``{film: (B, n)}``."""
+def _coupling_round(
+    film_data: Dict[str, FilmSweepData], films: List[str], streams, Js, Hz_applied,
+    coupling: str = "exact",
+):
+    """One inter-film coupling exchange.  Returns the field each film feels
+    from all others, ``{film: (B, n)}``.
+
+    ``coupling="exact"``: over unordered film pairs, two one-way
+    ``biot_savart_batch`` passes per pair, or one ``biot_savart_pair``
+    pass with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``, on the current
+    densities ``Js``.  ``coupling="fft"``: each source's stream ``streams``
+    is transformed once, and each destination sums its sources' transfers
+    in Fourier space (one ``irfft2`` and one grid gather per film)."""
+    if coupling == "fft":
+        from .ops import fft_coupling
+
+        spectra = {
+            name: fft_coupling.fft_source_spectrum(film_data[name].fft_grid, streams[name])
+            for name in films
+        }
+        new_others = {}
+        for dst in films:
+            srcs = [s for s in films if s != dst]
+            dzs = [abs(film_data[dst].z0 - film_data[s].z0) for s in srcs]
+            new_others[dst] = fft_coupling.fft_fields_from_spectra(
+                film_data[dst].fft_grid, [spectra[s] for s in srcs], dzs
+            )
+        return new_others
     new_others = {name: torch.zeros_like(Hz_applied[name]) for name in films}
     for ai, a in enumerate(films):
         for b in films[ai + 1 :]:
@@ -445,7 +474,7 @@ def _coupling_round(film_data: Dict[str, FilmSweepData], films: List[str], Js, H
 
 def _run_sweep_history(
     film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
-    check_inversion: bool = False,
+    check_inversion: bool = False, coupling: str = "exact",
 ):
     """The initial per-film solves plus ``iterations`` coupling rounds,
     recording every round, each at full refinement.
@@ -468,7 +497,12 @@ def _run_sweep_history(
         Js[name].append(J)
     for _ in range(iterations):
         new_others = _coupling_round(
-            film_data, films, {name: Js[name][-1] for name in films}, Hz_applied
+            film_data,
+            films,
+            {name: gs[name][-1] for name in films},
+            {name: Js[name][-1] for name in films},
+            Hz_applied,
+            coupling,
         )
         for name in films:
             g, J = _solve_film_batch(
@@ -517,7 +551,8 @@ def _inner_refine_steps(refine_steps: int) -> int:
 
 
 def _run_sweep(
-    film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int
+    film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
+    coupling: str = "exact",
 ):
     """The sweep that keeps only its final state: the initial solves and
     all but the last coupling round refine with
@@ -536,7 +571,7 @@ def _run_sweep(
         )
     for it in range(iterations):
         final = it == iterations - 1
-        others = _coupling_round(film_data, films, Js, Hz_applied)
+        others = _coupling_round(film_data, films, streams, Js, Hz_applied, coupling)
         for name in films:
             streams[name], Js[name] = _solve_film_batch(
                 film_data[name],
@@ -839,6 +874,112 @@ def _applied_field_rows(device, model, applied_fields: Sequence[Callable]) -> Di
     return out
 
 
+#: Per-round cost-model constants of ``coupling="auto"``, from
+#: ``chip_smoke.py`` phase 12 (B = 8, float32) on an NVIDIA H100 80GB HBM3
+#: at its 700.00 W power limit: one exact and one FFT round in turns on
+#: five layouts (the four-ring stack at 27,298 sites per film, pairs of
+#: disks at ~12,000, ~30,000 and ~100,000 sites per film, the Huber
+#: susceptometer; PERF.md).  Exact: ms per ``n_src * n_dst`` site pair of
+#: one ``biot_savart_batch`` pass plus a fixed cost per ordered film pair
+#: (its launches), fitted on the five.  FFT, per film: the larger of a
+#: fixed cost, fitted on the five (the round's ~35 launches per film pace
+#: it: the card is idle ~80 % of an FFT round on the stack), and the
+#: device's work, ms per ``G^2 log2(G)`` (the device time of the stack's
+#: FFT rounds under the profiler, G = 864).  The JAX package's constants
+#: were measured on a TPU v5e and its model has no fixed costs, so it
+#: switches to the FFT transfer at other sizes than the port does.
+_EXACT_MS_PER_PAIR_SITE2 = 9.789e-10
+_EXACT_MS_PER_FILM_PAIR = 0.0794
+_FFT_MS_PER_FILM = 0.9217
+_FFT_DEVICE_MS_PER_GRID_UNIT = 4.944e-8
+
+
+def _predict_fft_grid(device) -> int:
+    """The grid size the FFT coupling would build (``ops.fft_coupling``'s
+    grid with the default spacing and padding)."""
+    from .ops.fft_coupling import _grid_axes, mean_edge_spacing
+
+    meshes = device.meshes
+    x, _, _ = _grid_axes([m.sites for m in meshes.values()], mean_edge_spacing(meshes))
+    return len(x)
+
+
+def _coupling_round_ms(sizes, G) -> Dict[str, float]:
+    """The cost model's ms of one exact and one FFT coupling round over
+    films of ``sizes`` sites on an FFT grid of side ``G``."""
+    n_films = len(sizes)
+    fft_device_ms = _FFT_DEVICE_MS_PER_GRID_UNIT * G * G * np.log2(G)
+    return {
+        "exact": _EXACT_MS_PER_PAIR_SITE2 * (sum(sizes) ** 2 - sum(n * n for n in sizes))
+        + _EXACT_MS_PER_FILM_PAIR * n_films * (n_films - 1),
+        "fft": n_films * max(_FFT_MS_PER_FILM, fft_device_ms),
+    }
+
+
+def _distinct_heights(model, films) -> bool:
+    z0s = [model.device.layers[model.film_info[f].layer].z0 for f in films]
+    return len(set(np.round(z0s, 12))) == len(z0s)
+
+
+def _resolve_auto_coupling(model, films, iterations) -> str:
+    """The concrete coupling mode for ``coupling="auto"``.
+
+    "exact" with one film, with no coupling rounds, or with two films at
+    one height (the analytic transfer suppresses nothing at ``dz = 0``).
+    ``SUPERSCREEN_TPU_FFT_COUPLING_MIN_N`` restores a plain threshold: FFT
+    iff every film has at least that many sites.  Otherwise the per-round
+    cost models of :func:`_coupling_round_ms` decide: the exact pairwise
+    pass costs ``A * sum_{i != j} n_i n_j + E * n_films (n_films - 1)``,
+    the FFT transfer ``n_films * max(F, C * G^2 log2(G))`` for the grid
+    ``G`` the FFT path would build, with the constants measured on the
+    H100 (see ``_EXACT_MS_PER_PAIR_SITE2``).  The JAX package's model has
+    no fixed costs and its constants were fitted on a TPU, so it chooses
+    differently: on the card two disks switch to FFT at ~30,000 sites per
+    film.
+    """
+    if len(films) < 2 or iterations == 0 or not _distinct_heights(model, films):
+        return "exact"
+    device = model.device
+    sizes = [len(device.meshes[f].sites) for f in films]
+    threshold = os.environ.get("SUPERSCREEN_TPU_FFT_COUPLING_MIN_N")
+    if threshold is not None:
+        return "fft" if min(sizes) >= int(threshold) else "exact"
+    ms = _coupling_round_ms(sizes, _predict_fft_grid(device))
+    return "fft" if ms["fft"] < ms["exact"] else "exact"
+
+
+def _attach_fft_grids(model, film_data, films) -> Dict[str, FilmSweepData]:
+    """``film_data`` with each film's FFT grid data.  The grids depend only
+    on the geometry, so they are built once per model (on its torch
+    device) and cached on it.  Raises for films at one height."""
+    from .ops.fft_coupling import build_film_grid_data
+
+    if not _distinct_heights(model, films):
+        raise ValueError(
+            "coupling='fft' requires films on distinct layer heights (the analytic "
+            "transfer suppresses no wavenumbers at dz=0); use coupling='exact'."
+        )
+    if model.fft_grids is None:
+        model.fft_grids = build_film_grid_data(model.device, model.torch_device)
+    return {name: replace(d, fft_grid=model.fft_grids[name]) for name, d in film_data.items()}
+
+
+def _check_coupling(coupling: str) -> None:
+    if coupling not in ("auto", "exact", "fft"):
+        raise ValueError(f"coupling must be 'auto', 'exact', or 'fft' (got {coupling!r}).")
+
+
+def _resolve_coupling(model, films, iterations, coupling: str) -> str:
+    """The coupling mode a solve runs: ``"auto"`` resolved, and ``"fft"``
+    only where a coupling round runs (several films, ``iterations > 0``)."""
+    _check_coupling(coupling)
+    if coupling == "auto":
+        coupling = _resolve_auto_coupling(model, films, iterations)
+    if len(films) < 2 or iterations == 0:
+        return "exact"
+    return coupling
+
+
 def solve_many(
     device=None,
     *,
@@ -893,8 +1034,14 @@ def solve_many(
             rounds refine 0 times unless ``SUPERSCREEN_TPU_INNER_REFINE``
             says otherwise: their solver noise is contracted by the
             coupling iteration.
-        coupling: ``"exact"`` or ``"auto"`` (which means exact here);
-            ``"fft"`` is not supported yet.
+        coupling: Inter-film coupling operator of the rounds: ``"auto"``
+            (the per-round cost model of :func:`_resolve_auto_coupling`,
+            fitted on the H100, so it may choose otherwise than the JAX
+            package), ``"exact"`` (pairwise Biot-Savart) or ``"fft"``
+            (the analytic Fourier transfer of :mod:`.ops.fft_coupling`;
+            films on distinct heights; its error is the JAX package's, up
+            to ~2e-2 of the streams on a ring with a circulating current,
+            whose hole the grid leaves empty).
         keep_history: Record every self-consistent iteration and return a
             list of ``iterations + 1`` :class:`SweepResult` objects (one
             per iteration, each covering the whole batch) instead of just
@@ -954,12 +1101,6 @@ def solve_many(
             "result_dtype is not supported with keep_history=True (the "
             "history path stores the sweep's native dtype)."
         )
-    if coupling == "fft":
-        raise NotImplementedError(
-            "coupling='fft' is not ported yet (ROADMAP item 4, FFT coupling); use 'exact'."
-        )
-    if coupling not in ("auto", "exact"):
-        raise ValueError(f"coupling must be 'auto' or 'exact' (got {coupling!r}).")
     device = model.device
     current_units = model.current_units
     dtype = device.solve_dtype
@@ -1028,8 +1169,11 @@ def solve_many(
     def to_host(tensors):
         return {name: t.cpu().numpy() for name, t in tensors.items()}
 
+    coupling = _resolve_coupling(model, films, iterations, coupling)
     with highest_matmul_precision():
         film_data = _get_sweep_data(model)
+        if coupling == "fft":
+            film_data = _attach_fft_grids(model, film_data, films)
         vortex_amps_flat = None
         if vortex_nPhi0 is not None:
             film_data, vortex_amps_flat = _apply_vortex_amplitudes(
@@ -1042,7 +1186,8 @@ def solve_many(
             )
         runner = _run_sweep_history if keep_history else _run_sweep
         streams, Js, self_fields, others = runner(
-            film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps
+            film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
+            coupling=coupling,
         )
         polish_report = None
         if final_refine:

@@ -693,3 +693,83 @@ def test_high_precision_and_polish_on_the_card_match_float64(cuda):
         assert np.abs(hp.film_solutions[name].stream - fs.stream).max() <= 1e-9 * scale
         # The polish solves the float32-rounded system exactly.
         assert np.abs(polished.streams[name][0] - fs.stream).max() <= 1e-5 * scale
+
+
+def test_fft_coupling_round_on_the_card_matches_cpu(cuda):
+    """One FFT coupling round (cuFFT, gathers, the transfer) on the card
+    against the same round on the CPU, float32."""
+    from types import SimpleNamespace
+
+    from superscreen_tpu_torch.ops import fft_coupling
+    from superscreen_tpu_torch.sweep import _coupling_round
+
+    device = _two_films(1500, "float32")
+    films = list(device.films)
+    z0 = {name: float(device.layers[device.films[name].layer].z0) for name in films}
+    rng = np.random.default_rng(8)
+    g = {name: rng.standard_normal((4, len(device.meshes[name].sites))) for name in films}
+    out = {}
+    for where in ("cpu", "cuda"):
+        grids = fft_coupling.build_film_grid_data(device, where)
+        data = {name: SimpleNamespace(fft_grid=grids[name], z0=z0[name]) for name in films}
+        streams = {name: torch.as_tensor(g[name], dtype=torch.float32, device=where) for name in films}
+        out[where] = _coupling_round(data, films, streams, None, None, "fft")
+    for name in films:
+        assert out["cuda"][name].device.type == "cuda"
+        assert _rel_err(out["cuda"][name].cpu(), out["cpu"][name]) <= TOL[torch.float32]
+
+
+def test_solve_many_fft_on_the_card_matches_cpu(cuda):
+    device = _two_films(1500, "float32")
+    kwargs = dict(
+        applied_fields=[st.sources.ConstantField(v) for v in (0.5, 1.0)], iterations=3,
+        coupling="fft",
+    )
+    card = st.solve_many(device, torch_device="cuda", **kwargs)
+    cpu = st.solve_many(device, torch_device="cpu", **kwargs)
+    for name, a in cpu.streams.items():
+        assert np.abs(card.streams[name] - a).max() <= 1e-4 * np.abs(a).max()
+
+
+def _mini_squid(sites):
+    squid = st.Device(
+        "mini_squid",
+        layers=[st.Layer("sq", Lambda=0.3, z0=0)],
+        films=[st.Polygon("fc_ring", layer="sq", points=st.geometry.circle(1.5, points=80))],
+        holes=[st.Polygon("fc_hole", layer="sq", points=st.geometry.circle(0.9, points=50))],
+        abstract_regions=[st.Polygon("pl", layer="sq", points=st.geometry.circle(0.4, points=48))],
+        length_units="um",
+    )
+    squid.make_mesh(min_points=sites, smooth=5)
+    sample = st.Device(
+        "sample",
+        layers=[st.Layer("s", Lambda=0.1, z0=0)],
+        films=[st.Polygon("disk", layer="s", points=st.geometry.circle(6.0, points=160))],
+        length_units="um",
+    )
+    sample.make_mesh(min_points=4 * sites, smooth=5)
+    return squid, sample
+
+
+def test_applied_field_maps_per_position_match_scalar_height_launches(cuda):
+    """Per-position heights (one biot_savart_batch launch per position)
+    against the scalar-height launch over all positions at once."""
+    from superscreen_tpu_torch.squids import scanning
+
+    squid, sample = _mini_squid(500)
+    solution = st.solve(squid, circulating_currents={"fc_hole": "1 mA"}, current_units="mA",
+                        torch_device="cuda")[-1]
+    B = 6
+    positions = np.column_stack([np.linspace(-8, 8, B), np.zeros(B)])
+    kw = dict(current_units="uA", torch_device="cuda")
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    scalar = scanning.applied_field_maps(sample, solution, positions, squid_height=1.0, **kw)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1
+    per = scanning.applied_field_maps(sample, solution, positions, squid_height=np.ones(B), **kw)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 1 + B
+    cpu = scanning.applied_field_maps(sample, solution, positions, squid_height=1.0,
+                                      current_units="uA", torch_device="cpu")
+    for name, H in scalar.items():
+        assert H.device.type == "cuda"
+        assert _rel_err(per[name], H) <= TOL[torch.float32]
+        assert _rel_err(H.cpu(), cpu[name]) <= TOL[torch.float32]

@@ -180,14 +180,11 @@ def test_cuda_without_a_card_raises():
 @pytest.mark.parametrize(
     "call, error",
     [
-        (lambda d: st.solve(d, coupling="fft", torch_device="cpu"), NotImplementedError),
         (lambda d: st.solve(d, coupling="bogus", torch_device="cpu"), ValueError),
         (lambda d: st.solve(d, vortices=[object()], torch_device="cpu"), TypeError),
         (lambda d: st.solve(d, terminal_currents={"ring": {"a": 1.0}}, torch_device="cpu"), KeyError),
         (lambda d: st.solve_many(d, applied_fields=[], final_refine=1, keep_history=True,
                                  torch_device="cpu"), ValueError),
-        (lambda d: st.solve_many(d, applied_fields=[], coupling="fft", torch_device="cpu"),
-         NotImplementedError),
         (lambda d: st.solve(d, torch_device="meta"), ValueError),
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
         (lambda d: st.solve(d, check_inversion=True), RuntimeError),

@@ -271,7 +271,6 @@ def test_single_film_and_no_iterations_have_no_other_fields(models):
         (dict(applied_fields="fields", final_refine=1, keep_history=True), ValueError, "keep_history"),
         (dict(applied_fields="fields", result_dtype="float64", keep_history=True), ValueError,
          "keep_history"),
-        (dict(applied_fields="fields", coupling="fft"), NotImplementedError, "ROADMAP item 4"),
         (dict(applied_fields="fields", coupling="bogus"), ValueError, "coupling"),
         (dict(applied_fields="fields", vortex_nPhi0=np.ones((1, 1))), ValueError, "shape"),
         (dict(applied_fields="fields", terminal_currents=[{"big_ring": {"a": 1.0}}]), ValueError,
