@@ -116,6 +116,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    against its stream (the JAX package's test bars); and
    ``vortex_energy_landscape`` on a ~15,000-site disk, the self-energy at
    one site within 1e-5 of a vortex solve there.
+14. The differentiable solve, last, where no other model holds the card:
+   ``build_adjoint_model`` on phase 2's stack (about 20,000 sites per
+   film, five coupling rounds), its float32 forward pass within 1e-4 of
+   phase 2's ``solve()`` and its float64 one within 1e-8 of a float64
+   ``solve()`` on the card; the float32 gradient within 2e-4 of the
+   float64 one; the directional derivative of the summed squared
+   self-fields along a seeded direction in one film's Lambda within 1e-6
+   of a central difference; two backward passes bitwise equal, and the
+   backward pass launching biot_savart_batch; the coupling VJP on the
+   kernel against plain autograd through biot_savart_plain (1e-5 in
+   float32, 1e-12 in float64); q_matrix in float64 on the stack's and the
+   sample's sites against q_matrix_plain (1e-12), and q_matrix and
+   biot_savart_batch (forward and VJP shapes) timed beside their bounds.
+   Then config 5 of phase 13 with a hidden Gaussian weak spot in the
+   sample's Lambda: ``build_scan_forward`` within 1e-8 (float64) and
+   1e-4 (float32) of ``susceptibility_scan``, the gradient of a map
+   misfit within 1e-6 of a central difference, and five Adam steps from a
+   uniform guess, whose misfit must fall.  Forward, backward and step
+   times, launches, peak memory and profiles are printed.
 
 Phases 2-11 hold ``coupling="auto"`` to the exact pairwise coupling
 (SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
@@ -258,6 +277,24 @@ LANDSCAPE_POINTS = 15000
 LANDSCAPE_TOL = 1e-5
 # The torch device of the sweep phases.
 CARD = "cuda"
+
+# Phase 14 (the differentiable solve).  The float32 forward pass against
+# phase 2's solve() and the float64 one against a float64 solve() on the
+# card; the directional derivative against a central difference (the bar
+# of tests/test_adjoint.py); the coupling VJP on the kernel against plain
+# autograd (TOL); the scan against susceptibility_scan.
+ADJ_F32_MAX = 1e-4
+ADJ_F64_MAX = 1e-8
+ADJ_FD_MAX = 1e-6
+ADJ_FD_EPS = 1e-5
+# The float32 stack gradient against the float64 one on the same drive,
+# relative to max|grad64|: 6.0e-5 on an H100, about three times the float32
+# forward's distance from float64, as a product of two float32 fields is.
+ADJ_GRAD32_MAX = 2e-4
+ADJ_SCAN_MAX = {"float32": 1e-4, "float64": 1e-8}
+ADAM_STEPS = 5
+ADAM_LR = 5e-2
+ADAM_GUESS = 0.5
 
 # Peak rates of an H100 SXM at its 700 W limit (132 SMs at 1.98 GHz;
 # NVIDIA's data sheet): HBM bytes, FP32 and FP64 operations outside the
@@ -702,7 +739,7 @@ def _profile_solve(torch, st, model, label):
     _profile(torch, lambda: _solve(torch, st, model)[1], label)
 
 
-def _profile(torch, run, label):
+def _profile(torch, run, label, top=8):
     """``run`` (which returns its wall time, ended by a synchronise) once to
     warm up and once under torch.profiler: prints its wall time (profiled),
     the device time (the kernels' summed self time), the device's idle
@@ -722,7 +759,7 @@ def _profile(torch, run, label):
         f"{label}: wall_ms={wall * 1e3:.1f} (profiled) device_ms={device_ms:.1f} "
         f"idle_share={1 - device_ms / (wall * 1e3):.3f}"
     )
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(
             f"{label}   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({e.self_device_time_total / 1e3 / device_ms:6.1%}) x{e.count:<6d} {e.key[:90]}"
@@ -742,7 +779,7 @@ def _stream_error(solutions, reference):
 
 def phase_solve(torch, st, cuda_kernels, device):
     """The dense multi-film solve at real size on the meshed ``device``;
-    returns the launch counts."""
+    returns the launch counts and the final round's streams."""
     from superscreen_tpu_torch.solver.utils import MAX_DENSE_KERNEL_SIZE
 
     sizes = {name: len(mesh.sites) for name, mesh in device.meshes.items()}
@@ -757,7 +794,8 @@ def phase_solve(torch, st, cuda_kernels, device):
     # Every round of solve() refines: three residuals per film and round.
     _require(launches["residual_f64"] == 3 * len(device.films) * (ITERATIONS + 1), launches)
     _check_residuals(torch, model, solutions[-1], "phase2")
-    return launches
+    streams = {name: fs.stream for name, fs in solutions[-1].film_solutions.items()}
+    return launches, streams
 
 
 def phase_lowmem(torch, st, cuda_kernels, device):
@@ -2479,7 +2517,8 @@ def phase_scanning(torch, st, kernels, cuda_kernels):
     float32, against the port's own float64 run; back action; magnetometry
     with screening over a Pearl vortex), the current imaging of a solved
     ring, and a vortex energy landscape.  Returns the launch counts of the
-    scan."""
+    scan, and the config-5 sample, positions and SQUID solutions (float32
+    and float64) for phase 14."""
     from superscreen_tpu_torch.ops import interp
     from superscreen_tpu_torch.squids import scanning
 
@@ -2639,7 +2678,316 @@ def phase_scanning(torch, st, kernels, cuda_kernels):
     )
     _require(ls_err <= LANDSCAPE_TOL, f"landscape self-energy {ls_err:.3e}")
     _require(bool(np.all(np.isfinite(landscape.total(1.0)))), "landscape")
-    return launches
+    context = dict(sample=sample, positions=positions,
+                   squid_solution={"float32": squid_solution, "float64": squid64_solution})
+    return launches, context
+
+
+def _weak_spot_lambda(x, y):
+    """The hidden Gaussian weak spot of examples/susceptibility_inversion.py."""
+    return 0.3 + 1.2 * np.exp(-((x - 1.0) ** 2 + (y + 0.5) ** 2) / 0.5)
+
+
+def _adjoint_kernel_rows(torch, kernels, cuda_kernels, device, sample_sites, launches):
+    """q_matrix in float64 on a stack film's sites and on the config-5
+    sample's (``sample_sites``), held against q_matrix_plain, and
+    biot_savart_batch at the adjoint's coupling shapes (forward B = 1; VJP:
+    roles swapped, two columns), timed beside their bounds; the VJP on the
+    kernel held against plain autograd through biot_savart_plain."""
+    from superscreen_tpu_torch.ops import autograd
+
+    meshes = list(device.meshes.values())
+    rng = np.random.default_rng(14)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        dev = dict(dtype=dtype, device=CARD)
+        src = torch.as_tensor(meshes[0].sites, **dev)
+        dst = torch.as_tensor(meshes[1].sites, **dev)
+        areas = torch.as_tensor(meshes[0].vertex_areas, **dev)
+        n1, n2 = src.shape[0], dst.shape[0]
+        J = torch.as_tensor(rng.standard_normal((1, n1, 2)), **dev).requires_grad_()
+        g = torch.as_tensor(rng.standard_normal((1, n2)), **dev)
+        (vjp,) = torch.autograd.grad(autograd.BiotSavartCoupling.apply(J, src, areas, dst, 0.25), J, g)
+        (plain,) = torch.autograd.grad(kernels.biot_savart_plain(src, areas, J, dst, 0.25), J, g)
+        abs_err, rel = _check_against_plain(torch, f"phase14 coupling VJP {name}", dtype, vjp, plain)
+        del plain
+        print(
+            f"phase14 coupling VJP on the kernel against plain autograd, {n1} -> {n2} sites, "
+            f"{name}: max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit {TOL[name]:.0e})"
+        )
+        ones = torch.ones(n2, **dev)
+        probe = torch.as_tensor(rng.standard_normal((2, n2, 2)), **dev)
+        for label, args, cols in (
+            ("forward", (src, areas, J.detach(), dst, 0.25), 1),
+            ("VJP (swapped, 2 columns)", (dst, ones, probe, src, 0.25), 2),
+        ):
+            ms = _timed(torch, lambda: cuda_kernels.biot_savart_batch(*args), 10)
+            plain_ms = _timed(torch, lambda: kernels.biot_savart_plain(*args), 3)
+            bound = _bound("biot_savart_batch", dtype, args[3].shape[0], args[0].shape[0], cols)
+            print(
+                f"phase14 biot_savart_batch {label} {args[0].shape[0]} -> {args[3].shape[0]}, "
+                f"B={cols} {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"{_bound_text(bound, ms)}; launches per forward + backward "
+                f"{launches['biot_savart_batch']}"
+            )
+    for sites in (meshes[0].sites, sample_sites):
+        n = len(sites)
+        pts = torch.as_tensor(sites, dtype=torch.float64, device=CARD)
+        abs_err, rel = _check_against_plain(
+            torch, f"phase14 q_matrix n={n} float64", torch.float64,
+            cuda_kernels.q_matrix(pts), kernels.q_matrix_plain(pts),
+        )
+        ms = _timed(torch, lambda: cuda_kernels.q_matrix(pts), 5)
+        plain_ms = _timed(torch, lambda: kernels.q_matrix_plain(pts), 2)
+        bound = _bound("q_matrix", torch.float64, n, n, 0)
+        print(
+            f"phase14 q_matrix n={n} float64: max_abs_err={abs_err:.3e} rel_err={rel:.3e} (limit "
+            f"{TOL['float64']:.0e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"{_bound_text(bound, ms)}; launches per model build {launches['q_matrix']}"
+        )
+    torch.cuda.empty_cache()
+
+
+def _adjoint_stack_run(torch, st, cuda_kernels, device, label):
+    """The adjoint model of the stack with phase 2's drive (1 mT, 1 mA in
+    the outer ring's hole, ITERATIONS rounds): returns the model, its
+    forward function, its parameters, and the build's launches."""
+    _reset_launches(cuda_kernels)
+    model, build_s = _wall(torch, lambda: st.build_adjoint_model(
+        device, field_units="mT", current_units="uA", torch_device=CARD))
+    build_launches = dict(cuda_kernels.LAUNCHES)
+    _require(build_launches["q_matrix"] == len(device.films), build_launches)
+    params = model.default_params(applied_field=st.sources.ConstantField(1.0))
+    params["circulating_currents"]["hole0"] = torch.tensor(1000.0, dtype=model.dtype, device=CARD)
+    interior = {name: len(data.interior) for name, data in model.films.items()}
+    print(
+        f"{label} build_adjoint_model: {build_s:.3f} s, launches {build_launches}; "
+        f"interior unknowns {interior}"
+    )
+    return model, model.forward_fn(ITERATIONS), params, build_launches
+
+
+def _adjoint_loss(torch, forward, params, film, lam):
+    out = forward({**params, "Lambda": {**params["Lambda"], film: lam}})
+    return sum(torch.sum(fields["self_field"] ** 2) for fields in out.values()), out
+
+
+def _forward_backward(torch, cuda_kernels, forward, params, film, label):
+    """One forward and one backward pass of sum(self_field^2) with respect
+    to one film's Lambda, each timed (synchronised) with its launches."""
+    lam = params["Lambda"][film].clone().requires_grad_()
+    _reset_launches(cuda_kernels)
+    (loss, out), fwd_s = _wall(torch, lambda: _adjoint_loss(torch, forward, params, film, lam))
+    fwd_launches = dict(cuda_kernels.LAUNCHES)
+    _reset_launches(cuda_kernels)
+    (grad,), bwd_s = _wall(torch, lambda: torch.autograd.grad(loss, lam))
+    bwd_launches = dict(cuda_kernels.LAUNCHES)
+    print(
+        f"{label}: forward {fwd_s * 1e3:.1f} ms, launches {fwd_launches}; backward "
+        f"{bwd_s * 1e3:.1f} ms, launches {bwd_launches}"
+    )
+    _require(bwd_launches["biot_savart_batch"] > 0, f"{label}: backward launched no kernel")
+    _require(bool(torch.isfinite(grad).all()), f"{label}: gradient")
+    return out, grad, fwd_launches, bwd_launches
+
+
+def _stream_errors(out, streams):
+    return max(
+        float(np.abs(out[name]["stream"].detach().double().cpu().numpy() - ref).max()
+              / np.abs(ref).max())
+        for name, ref in streams.items()
+    )
+
+
+def phase_adjoint(torch, st, kernels, cuda_kernels, device, streams32, scan):
+    """Phase 14: the differentiable solve.  The four-ring stack of phase 2
+    (float32 against phase 2's solve(), float64 against a float64 solve()
+    on the card, a directional derivative against a central difference,
+    two backward passes bit for bit, the coupling VJP against plain
+    autograd) and config 5 with a hidden weak spot in the sample's Lambda
+    (build_scan_forward against susceptibility_scan in float32 and float64,
+    the misfit gradient against a central difference, and ADAM_STEPS Adam
+    steps from a uniform guess).  Returns the launch counts of the float32
+    stack's forward and backward passes."""
+    from superscreen_tpu_torch.squids import scanning
+
+    film = "ring1"
+    # Float32 stack.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, forward, params, build_launches = _adjoint_stack_run(
+        torch, st, cuda_kernels, device, "phase14 float32 stack"
+    )
+    out, grad32, fwd_launches, bwd_launches = _forward_backward(
+        torch, cuda_kernels, forward, params, film, "phase14 float32 stack (cold)"
+    )
+    err32 = _stream_errors(out, streams32)
+    out32 = {name: {"stream": fields["stream"].detach().cpu()} for name, fields in out.items()}
+    grad32 = grad32.double().cpu()
+    del out  # its graph holds the call's factorizations
+    _forward_backward(torch, cuda_kernels, forward, params, film, "phase14 float32 stack (warm)")
+    lam = params["Lambda"][film].clone().requires_grad_()
+    _profile(torch, lambda: _wall(torch, lambda: torch.autograd.grad(
+        _adjoint_loss(torch, forward, params, film, lam)[0], lam))[1],
+        "phase14 profile of a float32 stack forward + backward", top=14)
+    print(
+        f"phase14 float32 forward against phase 2's solve(): {err32:.3e} (limit {ADJ_F32_MAX:.0e}); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+    )
+    _require(err32 <= ADJ_F32_MAX, f"float32 adjoint streams {err32:.3e}")
+    # Every coupling pass has a VJP but the first round's from the three
+    # films whose Lambda is not differentiated.
+    pairs = len(device.films) * (len(device.films) - 1)
+    _require(fwd_launches["biot_savart_batch"] == pairs * ITERATIONS, fwd_launches)
+    _require(
+        bwd_launches["biot_savart_batch"] == pairs * (ITERATIONS - 1) + len(device.films) - 1,
+        bwd_launches,
+    )
+    del model, forward, params
+    torch.cuda.empty_cache()
+    # Float64 solve() on the card, then the float64 adjoint model.
+    device64 = device.copy()
+    device64.solve_dtype = "float64"
+    sol64 = st.solve(device64, applied_field=st.sources.ConstantField(1.0), current_units="uA",
+                     circulating_currents={"hole0": "1 mA"}, iterations=ITERATIONS,
+                     coupling="exact", torch_device=CARD)[-1]
+    streams64 = {name: fs.stream for name, fs in sol64.film_solutions.items()}
+    del sol64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, forward, params, _ = _adjoint_stack_run(
+        torch, st, cuda_kernels, device64, "phase14 float64 stack"
+    )
+    out, grad, _, _ = _forward_backward(torch, cuda_kernels, forward, params, film,
+                                        "phase14 float64 stack (cold)")
+    err64 = _stream_errors(out, streams64)
+    del out
+    grad_err32 = float((grad32.to(CARD) - grad).abs().max() / grad.abs().max())
+    print(
+        f"phase14 against the float64 solve(): the float32 adjoint forward "
+        f"{_stream_errors(out32, streams64):.3e}, phase 2's float32 solve() "
+        f"{_stream_errors({k: {'stream': torch.as_tensor(v)} for k, v in streams32.items()}, streams64):.3e}; "
+        f"the float32 gradient against the float64 one: {grad_err32:.3e} of max|grad| "
+        f"(limit {ADJ_GRAD32_MAX:.0e})"
+    )
+    _, grad_again, _, _ = _forward_backward(torch, cuda_kernels, forward, params, film,
+                                            "phase14 float64 stack (warm)")
+    same = bool(torch.equal(grad, grad_again))
+    lam = params["Lambda"][film].clone().requires_grad_()
+    _profile(torch, lambda: _wall(torch, lambda: torch.autograd.grad(
+        _adjoint_loss(torch, forward, params, film, lam)[0], lam))[1],
+        "phase14 profile of a float64 stack forward + backward", top=14)
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(grad.shape[0]), dtype=grad.dtype,
+                        device=CARD)
+    lam0 = params["Lambda"][film]
+    with torch.no_grad():
+        (up, _), (down, _) = (_adjoint_loss(torch, forward, params, film, lam0 + s * ADJ_FD_EPS * v)
+                              for s in (1, -1))
+    fd = float((up - down) / (2 * ADJ_FD_EPS))
+    ad = float(torch.dot(grad, v))
+    fd_err = abs(fd - ad) / abs(ad)
+    print(
+        f"phase14 float64 forward against a float64 solve() on the card: {err64:.3e} (limit "
+        f"{ADJ_F64_MAX:.0e}); directional derivative {ad:.10e} against the central difference "
+        f"{fd:.10e}: {fd_err:.3e} (limit {ADJ_FD_MAX:.0e}); two backward passes bitwise equal: "
+        f"{same}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+    )
+    _require(err64 <= ADJ_F64_MAX, f"float64 adjoint streams {err64:.3e}")
+    _require(fd_err <= ADJ_FD_MAX, f"directional derivative {fd_err:.3e}")
+    _require(same, "two backward passes differ")
+    _require(grad_err32 <= ADJ_GRAD32_MAX, f"float32 gradient {grad_err32:.3e}")
+    del model, forward, params, grad, grad_again, grad32
+    torch.cuda.empty_cache()
+    _adjoint_kernel_rows(
+        torch, kernels, cuda_kernels, device, scan["sample"].meshes["disk"].sites,
+        dict(q_matrix=build_launches["q_matrix"],
+             biot_savart_batch=fwd_launches["biot_savart_batch"] + bwd_launches["biot_savart_batch"]),
+    )
+    # Config 5 with a weak spot in the sample's Lambda.
+    for dtype in ("float64", "float32"):
+        sample = scan["sample"].copy()
+        sample.layers["s"].Lambda = st.Parameter(_weak_spot_lambda)
+        sample.solve_dtype = dtype
+        squid_solution = scan["squid_solution"][dtype]
+        kw = dict(positions=scan["positions"], squid_height=1.0, pickup_loop="pl", I_fc="1 mA")
+        measured = scanning.susceptibility_scan(
+            sample, squid_solution=squid_solution, torch_device=CARD, **kw)
+        _reset_launches(cuda_kernels)
+        (model, scan_fn), build_s = _wall(torch, lambda: scanning.build_scan_forward(
+            sample, squid_solution, torch_device=CARD, **kw))
+        build_launches = dict(cuda_kernels.LAUNCHES)
+        params = model.default_params()
+        chi, scan_s = _wall(torch, lambda: scan_fn(params))
+        err = float(np.abs(chi.detach().cpu().numpy() - measured).max() / np.abs(measured).max())
+        print(
+            f"phase14 build_scan_forward {dtype} (B={len(scan['positions'])}, sample "
+            f"{model.films['disk'].n} sites, {len(model.films['disk'].interior)} interior): "
+            f"build {build_s:.3f} s, launches {build_launches}; "
+            f"scan_fn {scan_s * 1e3:.1f} ms; against susceptibility_scan {err:.3e} "
+            f"(limit {ADJ_SCAN_MAX[dtype]:.0e})"
+        )
+        _require(err <= ADJ_SCAN_MAX[dtype], f"scan_fn {dtype} {err:.3e}")
+        _require(build_launches["biot_savart_batch"] == 1 and build_launches["q_matrix"] == 1,
+                 build_launches)
+        target = torch.as_tensor(measured, dtype=model.dtype, device=CARD)
+        n = model.films["disk"].n
+
+        def misfit(lam):
+            chi = scan_fn({**params, "Lambda": {"disk": lam}})
+            return torch.mean((chi - target) ** 2)
+
+        if dtype == "float64":
+            lam = torch.full((n,), ADAM_GUESS, dtype=model.dtype, device=CARD, requires_grad=True)
+            (grad,) = torch.autograd.grad(misfit(lam), lam)
+            v = torch.as_tensor(np.random.default_rng(1).standard_normal(n), dtype=model.dtype,
+                                device=CARD)
+            with torch.no_grad():
+                fd = float((misfit(lam + ADJ_FD_EPS * v) - misfit(lam - ADJ_FD_EPS * v))
+                           / (2 * ADJ_FD_EPS))
+            ad = float(torch.dot(grad, v))
+            fd_err = abs(fd - ad) / abs(ad)
+            print(
+                f"phase14 scan misfit gradient at a uniform Lambda = {ADAM_GUESS}: directional "
+                f"derivative {ad:.10e} against the central difference {fd:.10e}: {fd_err:.3e} "
+                f"(limit {ADJ_FD_MAX:.0e})"
+            )
+            _require(fd_err <= ADJ_FD_MAX, f"scan misfit gradient {fd_err:.3e}")
+            continue
+        lam = torch.full((n,), ADAM_GUESS, dtype=model.dtype, device=CARD, requires_grad=True)
+        loss, fwd_s = _wall(torch, lambda: misfit(lam))
+        _reset_launches(cuda_kernels)
+        _, bwd_s = _wall(torch, lambda: torch.autograd.grad(loss, lam))
+        print(
+            f"phase14 scan misfit {dtype}: forward {fwd_s * 1e3:.1f} ms, backward "
+            f"{bwd_s * 1e3:.1f} ms, backward launches {dict(cuda_kernels.LAUNCHES)}"
+        )
+        _profile(torch, lambda: _wall(torch, lambda: torch.autograd.grad(misfit(lam), lam))[1],
+                 "phase14 profile of a float32 scan misfit forward + backward")
+        opt = torch.optim.Adam([lam], lr=ADAM_LR)
+        losses, step_s = [], []
+        for _ in range(ADAM_STEPS):
+
+            def step():
+                opt.zero_grad()
+                loss = misfit(lam)
+                loss.backward()
+                opt.step()
+                with torch.no_grad():
+                    lam.clamp_(0.05, 5.0)
+                return float(loss.detach())
+
+            loss, seconds = _wall(torch, step)
+            losses.append(loss)
+            step_s.append(seconds)
+        with torch.no_grad():
+            final = float(misfit(lam))
+        print(
+            f"phase14 Adam on the sample's Lambda ({dtype}, lr {ADAM_LR}, from {ADAM_GUESS}): "
+            f"misfit {[f'{x:.4e}' for x in losses]} -> {final:.4e}; ms per step "
+            f"{[round(t * 1e3, 1) for t in step_s]}"
+        )
+        _require(final < losses[0], f"the misfit did not fall: {losses} -> {final}")
+    return fwd_launches, bwd_launches
 
 
 def main() -> int:
@@ -2655,7 +3003,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     cuda_kernels.load_library()
     build_s = time.perf_counter() - t0
     print(
@@ -2670,7 +3018,7 @@ def main() -> int:
     rows.update(phase_lowmem_kernels(torch, kernels, cuda_kernels, large))
     rows.update(phase_residual_kernel(torch, kernels, cuda_kernels))
     with _exact_coupling():
-        launches = phase_solve(torch, st, cuda_kernels, device)
+        launches, stack_streams = phase_solve(torch, st, cuda_kernels, device)
         phase_accuracy(st)
         model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
         pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
@@ -2681,10 +3029,14 @@ def main() -> int:
     del model, exact_sweep
     with _exact_coupling():
         phase_cg(torch, st, cuda_kernels, large, lu_solutions)
-        del large, device
+        del large
         transport_launches = phase_transport(torch, st, kernels, cuda_kernels)
         phase_huber(torch, st, cuda_kernels)
-    scan_launches = phase_scanning(torch, st, kernels, cuda_kernels)
+    scan_launches, scan_context = phase_scanning(torch, st, kernels, cuda_kernels)
+    adjoint_fwd, adjoint_bwd = phase_adjoint(
+        torch, st, kernels, cuda_kernels, device, stack_streams, scan_context
+    )
+    del device, scan_context
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches
@@ -2695,6 +3047,8 @@ def main() -> int:
     )
     _require(map_launches["biot_savart_batch"] > 0, map_launches)
     _require(scan_launches["biot_savart_batch"] > 0, scan_launches)
+    _require(adjoint_fwd["biot_savart_batch"] > 0 and adjoint_bwd["biot_savart_batch"] > 0,
+             (adjoint_fwd, adjoint_bwd))
     _require(fft_launches["q_apply"] > 0 and fft_launches["residual_f64"] > 0, fft_launches)
     _require(not auto_wrong, f"coupling='auto' against the measured faster mode: {auto_wrong}")
     _require(
@@ -2737,6 +3091,7 @@ def main() -> int:
         )
         for name in sources
     ]
+    print(f"chip_smoke wall time: {time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(

@@ -1,20 +1,23 @@
-"""Build this package's :class:`Device` from a ``superscreen_tpu`` device.
+"""Build this package's :class:`Device` from a ``superscreen_tpu`` device,
+and its adjoint parameters from the JAX package's.
 
-Only public attributes and NumPy arrays of the reference device are read
-(layers, films, holes, terminals, abstract regions and meshes), so this
-module does not import ``superscreen_tpu``.  Both packages then solve the
-identical mesh; the FEM operators are rebuilt here from its sites and
-elements.
+Only public attributes and NumPy arrays of the reference objects are read
+(layers, films, holes, terminals, abstract regions and meshes; the
+parameter dict's leaves), so this module does not import
+``superscreen_tpu``.  Both packages then solve the identical mesh; the FEM
+operators are rebuilt here from its sites and elements.
 """
 
 import numbers
 
 import numpy as np
+import torch
 
 from .device import Device, Layer, Mesh, Polygon
 from .parameter import CompositeParameter, Parameter
+from .solver.utils import torch_dtype
 
-__all__ = ["device_from_reference"]
+__all__ = ["adjoint_params_from_reference", "device_from_reference"]
 
 
 def _polygon(ref) -> Polygon:
@@ -68,3 +71,23 @@ def device_from_reference(ref_device) -> Device:
             for name, mesh in ref_device.meshes.items()
         }
     return device
+
+
+def adjoint_params_from_reference(params, dtype=torch.float64, torch_device="cuda"):
+    """The parameter dict of :class:`superscreen_tpu_torch.AdjointModel`
+    from the JAX package's (``superscreen_tpu.AdjointModel.default_params``
+    or an edited copy): ``{group: {key: leaf}}`` with NumPy or JAX arrays
+    as leaves, each copied to a tensor of ``dtype`` (a torch or NumPy
+    float dtype) on ``torch_device``."""
+    from .solver.solve import resolve_torch_device
+
+    torch_device = resolve_torch_device(torch_device)
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch_dtype(dtype)
+    return {
+        group: {
+            key: torch.as_tensor(np.array(leaf), dtype=dtype, device=torch_device)
+            for key, leaf in leaves.items()
+        }
+        for group, leaves in params.items()
+    }

@@ -23,6 +23,7 @@ from ..device.polygon import points_in_ring
 
 __all__ = [
     "COO",
+    "entry_table",
     "gather_form",
     "gather_matvec",
     "gather_matvec_batch",
@@ -35,6 +36,22 @@ __all__ = [
 ]
 
 
+def entry_table(keys: np.ndarray, n: int) -> np.ndarray:
+    """For each key value ``0..n-1``, the positions ``k`` of the entries
+    with ``keys[k]`` equal to it, in their order, as an ``(n, d)`` table
+    (``d`` the largest count, at least 1) padded with ``len(keys)``: the
+    fixed fan-in layout of a gather over a COO operator's rows (or, with
+    its columns as keys, over its transpose's rows)."""
+    keys = np.asarray(keys, dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=n)
+    d = max(int(counts.max()) if len(counts) else 0, 1)
+    table = np.full((n, d), len(keys), dtype=np.int64)
+    starts = np.cumsum(counts) - counts
+    table[keys[order], np.arange(len(keys)) - np.repeat(starts, counts)] = order
+    return table
+
+
 def gather_form(
     rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_rows: int, dtype, torch_device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,19 +59,9 @@ def gather_form(
     column indices and weights (``d`` the largest number of entries in a
     row), zero-weight padded.  Entries keep their triplet order within a
     row; duplicates stay separate entries and are summed by the product."""
-    rows = np.asarray(rows)
-    order = np.argsort(rows, kind="stable")
-    rows_s = rows[order]
-    cols_s = np.asarray(cols)[order]
-    vals_s = np.asarray(vals)[order]
-    counts = np.bincount(rows_s, minlength=n_rows)
-    d = max(int(counts.max()) if len(counts) else 0, 1)
-    idx = np.zeros((n_rows, d), dtype=np.int64)
-    w = np.zeros((n_rows, d), dtype=dtype)
-    starts = np.cumsum(counts) - counts
-    pos = np.arange(len(rows_s)) - np.repeat(starts, counts)
-    idx[rows_s, pos] = cols_s
-    w[rows_s, pos] = vals_s
+    table = entry_table(rows, n_rows)
+    idx = np.append(np.asarray(cols, dtype=np.int64), 0)[table]
+    w = np.append(np.asarray(vals, dtype=dtype), np.zeros(1, dtype=dtype))[table]
     return (
         torch.as_tensor(idx, device=torch_device),
         torch.as_tensor(w, device=torch_device),

@@ -214,6 +214,7 @@ def make_film_info(
     terminal_currents: Optional[Dict[str, Dict[str, float]]] = None,
     films: Optional[Sequence[str]] = None,
     dtype=None,
+    operators: bool = True,
 ) -> Dict[str, FilmInfo]:
     """Builds a :class:`FilmInfo` for every film in the device (or for the
     named ``films`` only), in the device's solve dtype (or in ``dtype``:
@@ -223,7 +224,10 @@ def make_film_info(
     ``Q`` (through the ``q_matrix`` kernel) and Laplacian, assembled on
     ``torch_device``; a larger film gets ``kernel=None`` and its COO
     Laplacian.  A film with inhomogeneous Lambda also gets its vertex
-    gradients, dense or COO like its Laplacian."""
+    gradients, dense or COO like its Laplacian.  With ``operators=False``
+    only the index sets, Lambda and the weights are built (``kernel``,
+    ``laplacian`` and the gradients are None): what the adjoint model reads
+    before it assembles its own operators."""
     if not device.meshes:
         raise ValueError(
             "The device does not have a mesh. Call device.make_mesh() to "
@@ -251,14 +255,14 @@ def make_film_info(
         )
         ops = mesh.operators
         gradient = gradient_coo = None
-        if lambda_info.inhomogeneous and dense_kernel:
+        if operators and lambda_info.inhomogeneous and dense_kernel:
             gradient = torch.stack(
                 [
                     ops.gradient_x.to_dense(tdtype, torch_device),
                     ops.gradient_y.to_dense(tdtype, torch_device),
                 ]
             )
-        elif lambda_info.inhomogeneous:
+        elif operators and lambda_info.inhomogeneous:
             gradient_coo = (ops.gradient_x, ops.gradient_y)
         film_info[name] = FilmInfo(
             name=name,
@@ -279,9 +283,11 @@ def make_film_info(
             weights=torch.as_tensor(
                 ops.weights.astype(dtype), device=torch_device
             ),
-            kernel=ops.Q_dense(tdtype, torch_device) if dense_kernel else None,
+            kernel=ops.Q_dense(tdtype, torch_device) if operators and dense_kernel else None,
             laplacian=(
-                ops.laplacian.to_dense(tdtype, torch_device) if dense_kernel else ops.laplacian
+                (ops.laplacian.to_dense(tdtype, torch_device) if dense_kernel else ops.laplacian)
+                if operators
+                else None
             ),
             sites=mesh.sites.astype(dtype, copy=False),
             dense_kernel=dense_kernel,

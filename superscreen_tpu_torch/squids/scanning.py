@@ -1,8 +1,7 @@
 """Scanning SQUID microscopy: a susceptometer rastered over a sample, each
 scan one batched computation on the torch device.
 
-Counterpart of ``superscreen_tpu/squids/scanning.py`` (all of it but
-``build_scan_forward``, which needs the adjoint).  A susceptibility scan
+Counterpart of ``superscreen_tpu/squids/scanning.py``.  A susceptibility scan
 (:func:`susceptibility_scan`) is, in the first-order approximation:
 
 1. the susceptometer solved once on its own with its field-coil drive,
@@ -18,7 +17,9 @@ Counterpart of ``superscreen_tpu/squids/scanning.py`` (all of it but
 
 ``back_action`` adds rounds of SQUID <-> sample self-consistency;
 :func:`magnetometry_scan` images a solved sample's own currents, with the
-SQUID body's screening if asked.
+SQUID body's screening if asked; :func:`build_scan_forward` is the
+first-order scan as a function of the sample's parameters that
+``torch.autograd`` differentiates.
 
 Conventions: the SQUID keeps its own frame; its ``z = 0`` plane sits
 ``squid_height`` above the sample's, and its origin is rastered over
@@ -78,37 +79,60 @@ def _tensor(array, dtype, torch_device) -> torch.Tensor:
     return torch.as_tensor(np.array(array, dtype=dtype), device=torch_device)
 
 
-def _contour_flux(dev, Js, eval_pts, eval_z, dtype, torch_device) -> np.ndarray:
-    """Trapezoid-rule ``sum_films`` of ``(A / mu_0) . dl`` around per-batch
-    contours: ``eval_pts`` is ``(Bc, k, 2)``; ``Js[film]`` is ``(Bc, n, 2)``
-    (currents varying with the batch) or ``(n, 2)`` (one distribution seen
-    from every contour); ``eval_z`` is a scalar or ``(Bc,)`` heights.  The
-    vector potential is the blocked plain sum of
-    :func:`ops.kernels.vector_potential_2d` on ``torch_device``."""
-    Bc, k = eval_pts.shape[0], eval_pts.shape[1]
-    zs = np.ascontiguousarray(
-        np.broadcast_to(np.asarray(eval_z, dtype=dtype).reshape(-1, 1), (Bc, k))
-    )
-    pts = _tensor(eval_pts, dtype, torch_device)
-    zs = _tensor(zs, dtype, torch_device)
-    dl = pts[:, 1:] - pts[:, :-1]  # (Bc, k-1, 2)
-    total = np.zeros(Bc, dtype=float)
-    for film_name, mesh in dev.meshes.items():
-        z_s = float(dev.layers[dev.films[film_name].layer].z0)
-        sites = _tensor(mesh.sites, dtype, torch_device)
-        areas = _tensor(mesh.vertex_areas, dtype, torch_device)
-        J = _tensor(Js[film_name], dtype, torch_device)
-        if J.ndim == 2:
-            A = kernels.vector_potential_2d(
-                pts.reshape(-1, 2), zs.reshape(-1), sites, z_s, areas, J
-            ).reshape(Bc, k, 2)
-        else:
-            A = torch.stack(
-                [kernels.vector_potential_2d(pts[b], zs[b], sites, z_s, areas, J[b]) for b in range(Bc)]
-            )
-        A_mid = 0.5 * (A[:, :-1, :] + A[:, 1:, :])
-        total += torch.einsum("bkx,bkx->b", A_mid, dl).cpu().numpy()
-    return total
+def _readout_tensors(dev, contours, heights, torch_device, block: int = 16) -> Dict[str, torch.Tensor]:
+    """``{film: (Bc, n, 2)}`` float64 readout tensors of closed contours:
+    the trapezoid-rule flux of ``(A / mu_0) . dl`` around contour ``b`` of
+    sheet currents ``J_b`` is ``sum_films sum_i R[b, i] . J_b[i]``
+    (:func:`_readout_flux`), with ``R[b, i] = w_i / (4 pi) sum_k u_k /
+    r(c_bk, site_i)`` over the vertices ``c_bk`` of ``contours[b]``
+    (``(k + 1, 2)``, closed) at height ``heights[b]`` (a scalar or
+    ``(Bc,)``), and ``u_k = (dl_{k-1} + dl_k) / 2`` the vertex weights of
+    the closed contour.  A vertex on a site drops that site's term, as
+    :func:`ops.kernels.vector_potential_2d` does (the ``1/r`` singularity
+    is integrable).  Formed on ``torch_device`` in blocks of ``block``
+    contours."""
+    f64 = dict(dtype=torch.float64, device=torch_device)
+    pts = torch.as_tensor(np.array(contours, dtype=float), **f64)  # (Bc, k + 1, 2)
+    Bc = pts.shape[0]
+    dl = pts[:, 1:] - pts[:, :-1]  # (Bc, k, 2)
+    u = 0.5 * (dl + torch.roll(dl, 1, dims=1))
+    verts = pts[:, :-1]
+    zs = torch.as_tensor(np.array(np.broadcast_to(heights, (Bc,)), dtype=float), **f64)
+    R = {}
+    for name, mesh in dev.meshes.items():
+        z_s = float(dev.layers[dev.films[name].layer].z0)
+        sites = torch.as_tensor(mesh.sites, **f64)
+        w = torch.as_tensor(mesh.vertex_areas, **f64)
+        out = torch.empty((Bc, sites.shape[0], 2), **f64)
+        for lo in range(0, Bc, block):
+            c = verts[lo : lo + block]
+            d2 = (
+                (c[:, :, None, 0] - sites[None, None, :, 0]) ** 2
+                + (c[:, :, None, 1] - sites[None, None, :, 1]) ** 2
+                + ((zs[lo : lo + block] - z_s) ** 2)[:, None, None]
+            )  # (b, k, n)
+            positive = d2 > 0
+            rinv = torch.where(positive, torch.rsqrt(torch.where(positive, d2, 1.0)), 0.0)
+            out[lo : lo + block] = torch.einsum("bkn,bkx->bnx", rinv, u[lo : lo + block])
+        R[name] = out * (w[None, :, None] / (4 * np.pi))
+    return R
+
+
+def _readout_flux(R: Dict[str, torch.Tensor], Js: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``(Bc,)`` flux ``sum_films sum_i R[b, i] . J_b[i]`` of readout
+    tensors ``R`` (:func:`_readout_tensors`) and currents ``Js[film]`` of
+    shape ``(Bc, n, 2)`` (varying with the contour) or ``(n, 2)`` (one
+    distribution seen from every contour)."""
+    return sum(torch.sum(R[name] * Js[name], dim=(-2, -1)) for name in R)
+
+
+def _contour_flux(dev, Js, contours, heights, torch_device) -> np.ndarray:
+    """The flux of ``(A / mu_0) . dl`` (trapezoid rule) of the sheet
+    currents ``Js[film]`` around each of ``contours`` ``(Bc, k + 1, 2)`` at
+    ``heights`` (scalar or ``(Bc,)``), in float64 on ``torch_device``."""
+    R = _readout_tensors(dev, contours, heights, torch_device)
+    Js = {name: _tensor(Js[name], np.float64, torch_device) for name in R}
+    return _readout_flux(R, Js).cpu().numpy()
 
 
 def _resolve_heights(squid_height, B: int, dtype=float) -> np.ndarray:
@@ -420,14 +444,14 @@ def susceptibility_scan(
             result = solve_many(model=sample_model, applied_field_arrays=H_sample, **sweep)
 
         # Sample-current flux through the shifted pickup contour.
-        pts = (contour[None, :, :] + chunk[:, None, :]).astype(dtype)
-        flux = _contour_flux(device, result.current_densities, pts, z_chunk, dtype, torch_device)
+        pts = contour[None, :, :] + chunk[:, None, :]
+        flux = _contour_flux(device, result.current_densities, pts, z_chunk, torch_device)
         if squid_J is not None:
             # The SQUID's own re-screened currents, in the SQUID frame,
             # where the contour is fixed.
             dJ = {name: squid_J[name] - squid_base_J[name][None] for name in squid_J}
-            pts_sq = np.broadcast_to(contour.astype(dtype)[None], (Bc,) + contour.shape)
-            flux = flux + _contour_flux(squid, dJ, pts_sq, z_loop, dtype, torch_device)
+            pts_sq = np.broadcast_to(contour[None], (Bc,) + contour.shape)
+            flux = flux + _contour_flux(squid, dJ, pts_sq, z_loop, torch_device)
         M = (flux * mu0_flux / I_amp).to(units)
         out[start : start + Bc] = M.magnitude
     if with_units:
@@ -534,8 +558,8 @@ def magnetometry_scan(
         Bc = chunk.shape[0]
         h_chunk = heights if heights.ndim == 0 else heights[start : start + Bc]
         z_chunk = z_pl if np.ndim(z_pl) == 0 else z_pl[start : start + Bc]
-        pts = (contour[None, :, :] + chunk[:, None, :]).astype(dtype)
-        flux = _contour_flux(device, sample_J, pts, z_chunk, dtype, torch_device)
+        pts = contour[None, :, :] + chunk[:, None, :]
+        flux = _contour_flux(device, sample_J, pts, z_chunk, torch_device)
         if screening:
             H_squid = _cross_field_maps(
                 src_dev=device, src_Js=sample_J, dst_dev=squid_device, dst_z_offset=h_chunk,
@@ -546,9 +570,9 @@ def magnetometry_scan(
                 current_units=current_units, iterations=iterations, coupling=coupling,
                 torch_device=torch_device,
             )
-            pts_sq = np.broadcast_to(contour.astype(dtype)[None], (Bc,) + contour.shape)
+            pts_sq = np.broadcast_to(contour[None], (Bc,) + contour.shape)
             flux = flux + _contour_flux(
-                squid_device, squid_result.current_densities, pts_sq, z_loop, dtype, torch_device
+                squid_device, squid_result.current_densities, pts_sq, z_loop, torch_device
             )
         Phi = (flux * mu0_flux).to(units)
         out[start : start + Bc] = Phi.magnitude
@@ -557,10 +581,94 @@ def magnetometry_scan(
     return out
 
 
-def build_scan_forward(*args, **kwargs):
-    """The differentiable susceptibility-scan forward model of the JAX
-    package needs the adjoint model, which is not ported yet."""
-    raise NotImplementedError(
-        "build_scan_forward needs the adjoint model, which is not ported yet "
-        "(ROADMAP item 7, adjoint)."
+def build_scan_forward(
+    sample_device,
+    squid_solution: Solution,
+    positions: np.ndarray,
+    *,
+    squid_height: Union[float, np.ndarray],
+    pickup_loop: Union[str, np.ndarray],
+    I_fc: Union[str, float],
+    iterations: int = 0,
+    current_units: str = "mA",
+    units: str = "Phi_0 / A",
+    dtype=None,
+    torch_device="cuda",
+):
+    """A **differentiable** susceptibility-scan forward model.
+
+    Wraps :func:`superscreen_tpu_torch.build_adjoint_model` with the
+    scanning geometry: the probe's applied-field maps (one
+    ``biot_savart_batch`` launch, :func:`applied_field_maps`) and the
+    pickup-loop readout tensors are parameter-independent and are made
+    once, on ``torch_device``.  The returned function maps the adjoint
+    parameter dict to the ``(B,)`` susceptibility map in ``units`` through
+    one batched forward pass (``B`` right-hand sides against one LU per
+    film); ``torch.autograd`` differentiates it with respect to the
+    sample's per-site ``Lambda``, circulating currents, vortex amplitudes
+    and terminal currents.
+
+    The scan is first-order (frozen probe currents), as
+    :func:`susceptibility_scan` with ``back_action=0``: the two agree to
+    solver precision for the same inputs.
+
+    Args:
+        sample_device: The meshed sample.
+        squid_solution: The susceptometer solved standalone with its
+            field-coil drive.
+        positions: ``(B, 2)`` scan positions (sample length units).
+        squid_height: Scalar or ``(B,)`` probe heights.
+        pickup_loop: Polygon name in the SQUID device or ``(k, 2)``
+            contour (SQUID coordinates).
+        I_fc: The field-coil drive used for ``squid_solution`` (string
+            with units, or a float in amperes).
+        iterations: Inter-film coupling rounds for multi-film samples.
+        current_units: Working current units of the adjoint model.
+        units: Units of the returned map.
+        dtype: Adjoint model dtype (default: the device's solve dtype).
+        torch_device: ``"cuda"`` (default) or ``"cpu"``.
+
+    Returns:
+        ``(adjoint_model, scan_fn)`` where ``scan_fn(params) -> (B,)``;
+        get or edit ``params`` through ``adjoint_model.default_params()``
+        (its ``"applied_field"`` entry is ignored: the probe's field is
+        part of the scan geometry).
+    """
+    from ..adjoint import build_adjoint_model
+
+    torch_device = resolve_torch_device(torch_device)
+    device = sample_device
+    positions = np.atleast_2d(np.asarray(positions, dtype=float))
+    heights = _resolve_heights(squid_height, positions.shape[0])
+    contour, z_loop = _pickup_contour(squid_solution.device, pickup_loop, device.length_units)
+    length_units = device.length_units
+    field_units = f"{current_units} / {length_units}"
+    model = build_adjoint_model(
+        device, field_units=field_units, current_units=current_units, dtype=dtype,
+        torch_device=torch_device,
     )
+    H_maps = {
+        name: H.to(model.dtype)
+        for name, H in applied_field_maps(
+            device, squid_solution, positions, squid_height=squid_height,
+            current_units=current_units, torch_device=torch_device,
+        ).items()
+    }
+    R = {
+        name: r.to(model.dtype)
+        for name, r in _readout_tensors(
+            device, contour[None, :, :] + positions[:, None, :], heights + z_loop, torch_device
+        ).items()
+    }
+    I_amp = (_global_ureg(I_fc) if isinstance(I_fc, str) else I_fc * _global_ureg("A")).to("A")
+    factor = float(
+        (_global_ureg(f"1 mu_0 * {current_units} * {length_units}") / I_amp).to(units).magnitude
+    )
+    forward = model.forward_fn(iterations)
+    order = model.film_order
+
+    def scan_fn(params):
+        out = forward({**params, "applied_field": H_maps})
+        return factor * _readout_flux(R, {name: out[name]["current_density"] for name in order})
+
+    return model, scan_fn

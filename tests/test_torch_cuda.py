@@ -773,3 +773,56 @@ def test_applied_field_maps_per_position_match_scalar_height_launches(cuda):
         assert H.device.type == "cuda"
         assert _rel_err(per[name], H) <= TOL[torch.float32]
         assert _rel_err(H.cpu(), cpu[name]) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dz2", [0.0, 0.25])
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+def test_coupling_vjp_on_the_kernel_matches_plain_autograd(cuda, dtype, dz2, B):
+    """``BiotSavartCoupling``'s backward pass (one biot_savart_batch launch
+    of 2B columns, roles swapped) against autograd through the plain sum."""
+    from superscreen_tpu_torch.ops import autograd
+
+    rng = np.random.default_rng(100 * B + int(4 * dz2))
+    n1, n2 = 3001, 1777
+    src = torch.as_tensor(rng.uniform(-5, 5, (n1, 2)), dtype=dtype, device=cuda)
+    dst = torch.as_tensor(rng.uniform(-4, 4, (n2, 2)), dtype=dtype, device=cuda)
+    areas = torch.as_tensor(rng.uniform(0.01, 0.02, n1), dtype=dtype, device=cuda)
+    J = torch.as_tensor(rng.standard_normal((B, n1, 2)), dtype=dtype, device=cuda).requires_grad_()
+    g = torch.as_tensor(rng.standard_normal((B, n2)), dtype=dtype, device=cuda)
+    before = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    out = autograd.BiotSavartCoupling.apply(J, src, areas, dst, dz2)
+    (vjp,) = torch.autograd.grad(out, J, g)
+    assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before + 2
+    (plain,) = torch.autograd.grad(kernels.biot_savart_plain(src, areas, J, dst, dz2), J, g)
+    torch.cuda.synchronize()
+    assert vjp.shape == J.shape
+    assert _rel_err(vjp, plain) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_adjoint_backward_on_the_card_is_reproducible_and_matches_cpu(cuda, dtype):
+    """A coupled two-film forward pass and its backward pass on the card:
+    two backward passes give the same bits (gather-form transposes, no
+    atomics), the backward pass launches the kernel, and the gradient
+    matches the float64 CPU model's (float32: within 1e-3)."""
+    device = _two_films(1500, dtype)
+    cpu_device = device.copy()
+    cpu_device.solve_dtype = "float64"
+    grads = []
+    for dev, where in ((device, "cuda"), (device, "cuda"), (cpu_device, "cpu")):
+        model = st.build_adjoint_model(dev, current_units="mA", torch_device=where)
+        params = model.default_params(applied_field=st.sources.ConstantField(0.5))
+        params["circulating_currents"]["big_hole"] = torch.tensor(1.0, dtype=model.dtype, device=where)
+        lam = params["Lambda"]["small"].clone().requires_grad_()
+        out = model.forward_fn(2)({**params, "Lambda": {**params["Lambda"], "small": lam}})
+        loss = torch.sum(out["big"]["self_field"] ** 2) + torch.sum(out["small"]["stream"] ** 2)
+        before = dict(cuda_kernels.LAUNCHES)
+        (grad,) = torch.autograd.grad(loss, lam)
+        if where == "cuda":
+            # Two rounds, two passes each; the first round's pass from the
+            # big film carries no gradient.
+            assert cuda_kernels.LAUNCHES["biot_savart_batch"] == before["biot_savart_batch"] + 3
+        grads.append(grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert _rel_err(grads[0].double(), grads[2]) <= (1e-3 if dtype == "float32" else 1e-10)
