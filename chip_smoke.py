@@ -135,8 +135,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    misfit within 1e-6 of a central difference, and five Adam steps from a
    uniform guess, whose misfit must fall.  Forward, backward and step
    times, launches, peak memory and profiles are printed.
+15. The host conveniences on phase 2's stack: ``distance.q_matrix`` on
+   one film's ~20,000 sites (NumPy out) bitwise equal to the q_matrix
+   kernel route, with one launch; ``translate(3, -2)``, which keeps and
+   shifts the mesh, factorized and solved (streams within 1e-4 of phase
+   2's, relative to each film's max|g|; the same error printed for a shift
+   of (50, 50) um, with no bar); with ``SUPERSCREEN_TPU_MESH_CACHE`` set to
+   a fresh temporary directory, the stack re-meshed (a miss, stored) and
+   ``mirror_layers()`` meshed with the same parameters (a hit, identical
+   arrays; both times printed), the mirrored stack solved (streams within
+   1e-6 of phase 2's: the coupling depends on dz^2 only; bitwise equality
+   printed); ``rotate(90)`` re-meshed and solved (each hole fluxoid
+   within 1e-2 of phase 2's); ``solve(return_solutions=False,
+   progress_bar=True)`` returning None (the card's machine has tqdm, so
+   a bar shows there; the path without tqdm is held on the CPU by
+   ``tests/test_torch_io.py``); ``distance.cdist`` and
+   ``MeshOperators.C_vector`` on the card against the CPU (1e-12);
+   ``version_dict()``; and, where h5py and dill are installed, an HDF5
+   round trip of the rotated model (bitwise-equal streams) and of one
+   solution (the card's machine has dill but no h5py: the phase says so on
+   one line).
 
-Phases 2-11 hold ``coupling="auto"`` to the exact pairwise coupling
+Phases 2-11 and 15 hold ``coupling="auto"`` to the exact pairwise coupling
 (SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
 exact coupling kernels, which the card's cost model may trade for the FFT
 transfer at their sizes.  Phase 12 drives the FFT coupling.
@@ -679,7 +699,7 @@ def _factorize_and_solve(torch, st, cuda_kernels, device, label):
         device=device,
         current_units="uA",
         circulating_currents={"hole0": "1 mA"},
-        torch_device="cuda",
+        torch_device=CARD,
     )
     torch.cuda.synchronize()
     t_factor = time.perf_counter() - t0
@@ -795,7 +815,7 @@ def phase_solve(torch, st, cuda_kernels, device):
     _require(launches["residual_f64"] == 3 * len(device.films) * (ITERATIONS + 1), launches)
     _check_residuals(torch, model, solutions[-1], "phase2")
     streams = {name: fs.stream for name, fs in solutions[-1].film_solutions.items()}
-    return launches, streams
+    return launches, streams, solutions[-1]
 
 
 def phase_lowmem(torch, st, cuda_kernels, device):
@@ -2990,6 +3010,188 @@ def phase_adjoint(torch, st, kernels, cuda_kernels, device, streams32, scan):
     return fwd_launches, bwd_launches
 
 
+def _relative_stream_error(solution, streams):
+    """Largest over the films of ``max|g - g_ref| / max|g_ref|``, with
+    ``streams`` the reference ``{film: stream}``."""
+    return max(
+        float(
+            np.abs(solution.film_solutions[name].stream.astype(np.float64) - ref).max()
+            / np.abs(ref).max()
+        )
+        for name, ref in ((k, v.astype(np.float64)) for k, v in streams.items())
+    )
+
+
+def _remesh_timed(device):
+    """Meshes ``device`` as phase 2's stack was meshed; returns the wall
+    seconds."""
+    t0 = time.perf_counter()
+    device.make_mesh(min_points=SITES_DENSE)
+    return time.perf_counter() - t0
+
+
+def phase_transforms(torch, st, kernels, cuda_kernels, device, reference):
+    """Phase 15: the host conveniences on phase 2's stack (``device``, whose
+    final Solution is ``reference``): the public ``distance.q_matrix``
+    against the kernel route, ``translate`` (which keeps the mesh), the
+    mesh cache with ``mirror_layers``, ``rotate``, ``solve(return_solutions
+    =False, progress_bar=True)``, the provenance dict, and an HDF5 round
+    trip of a model and a solution where h5py and dill are installed.
+    Returns the launch counts of the translated stack's factorize and
+    solve."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    ref_streams = {name: fs.stream for name, fs in reference.film_solutions.items()}
+    sites = device.meshes["ring0"].sites
+    # distance.q_matrix: NumPy in and out, on the q_matrix kernel.
+    _reset_launches(cuda_kernels)
+    out, wall_s = _wall(
+        torch, lambda: st.distance.q_matrix(sites, dtype=np.float32, torch_device=CARD)
+    )
+    public_launches = cuda_kernels.LAUNCHES["q_matrix"]
+    def kernel_route():
+        return kernels.q_matrix(torch.as_tensor(sites, dtype=torch.float32, device=CARD))
+
+    route = kernel_route()
+    same = bool(torch.equal(torch.from_numpy(out), route.cpu()))
+    del out
+    ms = _timed(torch, kernel_route, 3)
+    del route
+    print(
+        f"phase15 distance.q_matrix n={len(sites)} float32: bitwise equal to the kernel route "
+        f"{same}; launches {public_launches}; public call with the host copy "
+        f"{wall_s * 1e3:.1f} ms wall; kernel route {ms:.3f} ms (CUDA events)"
+    )
+    _require(same and public_launches == 1, "distance.q_matrix is not the q_matrix kernel")
+    # distance.cdist and MeshOperators.C_vector compute on the card by
+    # default.  C diverges where x - mean(x) = +-a, at sites that a rounding
+    # of the centroid moves, so C_vector takes 2^14 points of a dyadic
+    # grid, whose centroid is exact in any summation order, and is held
+    # entry by entry.
+    grid = np.random.default_rng(15).integers(-400, 400, (2**14, 2)) / 8
+    got, want = (st.distance.cdist(sites[:4096], sites[:2048], torch_device=d) for d in (CARD, "cpu"))
+    worst = float(np.abs(got - want).max() / np.abs(want).max())
+    got, want = (st.MeshOperators.C_vector(grid, torch_device=d) for d in (CARD, "cpu"))
+    worst = max(worst, float(np.max(np.abs(got - want) / np.abs(want))))
+    print(f"phase15 distance.cdist and MeshOperators.C_vector, card against CPU: {worst:.3e} (limit 1e-12)")
+    _require(worst <= 1e-12, f"cdist / C_vector on the card {worst:.3e}")
+
+    # translate keeps (and shifts) the mesh.
+    errors = {}
+    for shift in ((3.0, -2.0), (50.0, 50.0)):
+        moved = device.translate(*shift)
+        model, solutions, launches = _factorize_and_solve(
+            torch, st, cuda_kernels, moved, f"phase15 translate{shift}"
+        )
+        if shift == (3.0, -2.0):
+            transform_launches = launches
+        errors[shift] = _relative_stream_error(solutions[-1], ref_streams)
+        del model, solutions, moved
+        torch.cuda.empty_cache()
+    print(
+        f"phase15 translated streams against phase 2's (max|dg| / max|g| per film): "
+        f"(3, -2): {errors[(3.0, -2.0)]:.3e} (limit {STREAM_REL_MAX}); "
+        f"(50, 50): {errors[(50.0, 50.0)]:.3e} (no limit)"
+    )
+    _require(errors[(3.0, -2.0)] <= STREAM_REL_MAX, f"translated streams {errors}")
+
+    # The mesh cache, on a fresh stack and its mirror image.
+    cache = tempfile.mkdtemp(prefix="mesh_cache_")
+    try:
+        with _environ(SUPERSCREEN_TPU_MESH_CACHE=cache):
+            fresh = device.copy(with_mesh=False)
+            miss_s = _remesh_timed(fresh)
+            stored = sorted(os.listdir(cache))
+            mirrored = fresh.mirror_layers()
+            hit_s = _remesh_timed(mirrored)
+            hit = sorted(os.listdir(cache)) == stored and all(
+                np.array_equal(mirrored.meshes[k].sites, fresh.meshes[k].sites)
+                and np.array_equal(mirrored.meshes[k].elements, fresh.meshes[k].elements)
+                for k in fresh.films
+            )
+            same_as_phase2 = all(
+                np.array_equal(fresh.meshes[k].sites, device.meshes[k].sites) for k in device.films
+            )
+        print(
+            f"phase15 mesh cache: miss {miss_s:.3f} s ({len(stored)} entries stored), "
+            f"mirror_layers() hit {hit_s:.3f} s, identical arrays {hit}; the miss's meshes "
+            f"equal phase 2's: {same_as_phase2}"
+        )
+        _require(hit and len(stored) == len(device.films), "mesh cache did not hit")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    model, solutions, _ = _factorize_and_solve(torch, st, cuda_kernels, mirrored, "phase15 mirror")
+    err = _relative_stream_error(solutions[-1], ref_streams)
+    bitwise = all(
+        np.array_equal(solutions[-1].film_solutions[k].stream, v) for k, v in ref_streams.items()
+    )
+    print(
+        f"phase15 mirrored streams against phase 2's: {err:.3e} (limit 1e-6); "
+        f"bitwise equal {bitwise}"
+    )
+    _require(err <= 1e-6, f"mirrored streams {err:.3e}")
+    del model, solutions, mirrored, fresh
+    torch.cuda.empty_cache()
+
+    # rotate: a new mesh of the same geometry; the hole fluxoids agree.
+    rotated = device.rotate(90)
+    print(f"phase15 rotate(90) re-mesh: {_remesh_timed(rotated):.3f} s")
+    model, solutions, _ = _factorize_and_solve(torch, st, cuda_kernels, rotated, "phase15 rotate")
+    worst = 0.0
+    for hole in device.holes:
+        want = sum(reference.hole_fluxoid(hole)).to("Phi_0").magnitude
+        got = sum(solutions[-1].hole_fluxoid(hole)).to("Phi_0").magnitude
+        worst = max(worst, abs(got - want) / abs(want))
+        print(f"phase15 rotate(90) {hole} fluxoid {got:.6f} Phi_0 (phase 2: {want:.6f})")
+    print(f"phase15 rotated hole fluxoids: largest relative difference {worst:.3e} (limit 1e-2)")
+    _require(worst <= 1e-2, f"rotated fluxoids {worst:.3e}")
+    nothing = st.solve(
+        model=model, applied_field=st.sources.ConstantField(1.0), iterations=ITERATIONS,
+        return_solutions=False, progress_bar=True, torch_device=CARD,
+    )
+    print(
+        f"phase15 solve(return_solutions=False, progress_bar=True) returned {nothing!r} "
+        f"(tqdm installed: {importlib.util.find_spec('tqdm') is not None})"
+    )
+    _require(nothing is None, "return_solutions=False returned something")
+    print(f"phase15 version_dict: {json.dumps(st.version_dict())}")
+
+    # HDF5 needs h5py and dill.
+    missing = [m for m in ("h5py", "dill") if importlib.util.find_spec(m) is None]
+    if missing:
+        print(f"phase15 HDF5 round trip not run on the card: {', '.join(missing)} not installed")
+    else:
+        import h5py
+
+        folder = tempfile.mkdtemp(prefix="hdf5_")
+        try:
+            path = os.path.join(folder, "model.h5")
+            with h5py.File(path, "w") as f:
+                model.to_hdf5(f)
+            with h5py.File(path, "r") as f:
+                loaded = st.FactorizedModel.from_hdf5(f, torch_device=CARD)
+            again, _ = _solve(torch, st, loaded)
+            bitwise = all(
+                np.array_equal(a.film_solutions[k].stream, b.film_solutions[k].stream)
+                for a, b in zip(solutions, again) for k in device.films
+            )
+            solutions[-1].to_hdf5(os.path.join(folder, "solution.h5"))
+            back = st.Solution.from_hdf5(os.path.join(folder, "solution.h5"), torch_device=CARD)
+            print(
+                f"phase15 HDF5: reloaded model's streams bitwise equal {bitwise}; "
+                f"solution round trip equals {back.equals(solutions[-1])}"
+            )
+            _require(bitwise and back.equals(solutions[-1]), "HDF5 round trip")
+            del loaded, again, back
+        finally:
+            shutil.rmtree(folder, ignore_errors=True)
+    del model, solutions, rotated
+    torch.cuda.empty_cache()
+    return transform_launches
+
+
 def main() -> int:
     import torch
 
@@ -3018,7 +3220,7 @@ def main() -> int:
     rows.update(phase_lowmem_kernels(torch, kernels, cuda_kernels, large))
     rows.update(phase_residual_kernel(torch, kernels, cuda_kernels))
     with _exact_coupling():
-        launches, stack_streams = phase_solve(torch, st, cuda_kernels, device)
+        launches, stack_streams, stack_solution = phase_solve(torch, st, cuda_kernels, device)
         phase_accuracy(st)
         model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
         pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
@@ -3036,7 +3238,12 @@ def main() -> int:
     adjoint_fwd, adjoint_bwd = phase_adjoint(
         torch, st, kernels, cuda_kernels, device, stack_streams, scan_context
     )
-    del device, scan_context
+    del scan_context
+    with _exact_coupling():
+        transform_launches = phase_transforms(
+            torch, st, kernels, cuda_kernels, device, stack_solution
+        )
+    del device, stack_solution
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches
@@ -3050,6 +3257,10 @@ def main() -> int:
     _require(adjoint_fwd["biot_savart_batch"] > 0 and adjoint_bwd["biot_savart_batch"] > 0,
              (adjoint_fwd, adjoint_bwd))
     _require(fft_launches["q_apply"] > 0 and fft_launches["residual_f64"] > 0, fft_launches)
+    _require(
+        all(transform_launches[k] > 0 for k in ("q_matrix", "biot_savart_batch", "residual_f64")),
+        transform_launches,
+    )
     _require(not auto_wrong, f"coupling='auto' against the measured faster mode: {auto_wrong}")
     _require(
         all(d["residual_f64"] > 0 for d in (sweep_launches, transport_launches, certify_launches)),

@@ -1,16 +1,22 @@
 """Device: a stack of layers, films and holes.
 
 Counterpart of ``superscreen_tpu/device/device.py``: layers, films, holes,
-transport terminals and abstract regions, meshing, boundary vertices and
-the solve dtype.  The device has no file I/O.
+transport terminals and abstract regions, meshing (with the opt-in mesh
+cache of :mod:`.mesh_cache`), boundary vertices, the solve dtype, the
+geometric transforms, HDF5 files in the JAX package's layout and plots.
+``h5py`` and matplotlib are imported only by the methods that need them.
 """
 
 import logging
-from typing import Dict, List, Optional, Sequence, Union
+import numbers
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from .. import polygon_ops as pops
+from ..geometry import ensure_unique
+from ..io import h5_context, new_group
 from ..units import ureg
 from . import mesh_generation as mgen
 from .layer import Layer
@@ -33,6 +39,16 @@ def _by_name(items) -> dict:
     return {item.name: item for item in items}
 
 
+def _require_xy_origin(origin) -> None:
+    ok = (
+        isinstance(origin, tuple)
+        and len(origin) == 2
+        and all(isinstance(v, numbers.Real) for v in origin)
+    )
+    if not ok:
+        raise TypeError("Origin must be a tuple of floats (x, y).")
+
+
 def _broadcast_per_film(value, film_names):
     """Expand a scalar-or-dict meshing option into a per-film dict."""
     if isinstance(value, dict):
@@ -53,6 +69,43 @@ def _unwrap_terminals(
         if len(breaks):
             return np.roll(cycle, -(breaks[0] + 1))
     return cycle
+
+
+def _restore_sides(
+    mesh: Mesh,
+    polygons: List[Polygon],
+    sides: List[np.ndarray],
+    shift: Tuple[float, float],
+    reach: int = 16,
+):
+    """Moves each site of ``mesh`` that is no longer on the side ``sides``
+    gives it of one of ``polygons`` to the nearest point, at most ``reach``
+    float64 ulps away in x and y, that is on the given side of all of them
+    (the site's area and operators are kept: they change by ~1e-16).
+    Raises ``RuntimeError`` if there is no such point: the film's index
+    sets, and every solve of the moved mesh, would change."""
+    now = [polygon.contains_points(mesh.sites) for polygon in polygons]
+    moved = np.flatnonzero(np.any([a != b for a, b in zip(sides, now)], axis=0))
+    steps = np.arange(-reach, reach + 1)
+    kx, ky = (k.ravel() for k in np.meshgrid(steps, steps))
+    order = np.argsort(np.abs(kx) + np.abs(ky), kind="stable")
+    kx, ky = kx[order], ky[order]
+    for i in moved:
+        x, y = mesh.sites[i]
+        candidates = np.stack([x + kx * np.spacing(x), y + ky * np.spacing(y)], axis=1)
+        ok = np.all(
+            [p.contains_points(candidates) == side[i] for p, side in zip(polygons, sides)], axis=0
+        )
+        if not ok.any():
+            names = [p.name for p, a, b in zip(polygons, sides, now) if a[i] != b[i]]
+            raise RuntimeError(
+                f"Site {i} at ({x!r}, {y!r}) changed sides of {names} in the translation by "
+                f"{shift}, and no point within {reach} ulps puts it back; translate by another "
+                "shift or re-mesh."
+            )
+        mesh.sites[i] = candidates[np.argmax(ok)]
+        if mesh.operators is not None and mesh.operators.sites is not mesh.sites:
+            mesh.operators.sites[i] = mesh.sites[i]
 
 
 class Device:
@@ -89,7 +142,7 @@ class Device:
         self.holes = _by_name(holes)
         self.abstract_regions = _by_name(abstract_regions)
         self.terminals: Dict[str, List[Polygon]] = dict(terminals or {})
-        self.length_units = length_units
+        self._length_units = length_units
         self.solve_dtype = solve_dtype
         self.meshes: Optional[Dict[str, Mesh]] = None
         if set(self.terminals) - set(self.films):
@@ -114,6 +167,11 @@ class Device:
                     )
 
     @property
+    def length_units(self) -> str:
+        """Length units used for the device geometry."""
+        return self._length_units
+
+    @property
     def solve_dtype(self) -> np.dtype:
         """Float dtype used when solving the device."""
         return self._solve_dtype
@@ -133,16 +191,31 @@ class Device:
             polygons += [t for terms in self.terminals.values() for t in terms]
         return polygons
 
-    def polygons_by_layer(self, polygon_type: str) -> Dict[str, List[Polygon]]:
+    @property
+    def poly_points(self) -> np.ndarray:
+        """All unique polygon vertices in the device (terminals excluded)."""
+        stacked = np.concatenate(
+            [p.points for p in self.get_polygons(include_terminals=False)]
+        )
+        return ensure_unique(stacked)
+
+    def polygons_by_layer(self, polygon_type: Optional[str] = None) -> Dict[str, List[Polygon]]:
         """``{layer_name: [polygons of the given type in that layer]}`` for
-        ``polygon_type`` in ``("film", "hole", "abstract", "terminal")``."""
+        ``polygon_type`` in ``("film", "hole", "abstract", "terminal",
+        "all")`` (None means ``"all"``)."""
         groups = {
-            "film": self.films.values(),
-            "hole": self.holes.values(),
-            "abstract": self.abstract_regions.values(),
-            "terminal": [t for terms in self.terminals.values() for t in terms],
+            "film": lambda: self.films.values(),
+            "hole": lambda: self.holes.values(),
+            "abstract": lambda: self.abstract_regions.values(),
+            "terminal": lambda: [t for terms in self.terminals.values() for t in terms],
+            "all": lambda: self.get_polygons(),
         }
-        chosen = list(groups[polygon_type])
+        key = (polygon_type or "all").lower()
+        if key not in groups:
+            raise ValueError(
+                f"Invalid polygon type ({polygon_type}). Expected one of {tuple(groups)!r}."
+            )
+        chosen = list(groups[key]())
         return {
             layer: [p for p in chosen if p.layer == layer] for layer in self.layers
         }
@@ -180,6 +253,99 @@ class Device:
             else:
                 clone.meshes = self.meshes
         return clone
+
+    # -- transforms ----------------------------------------------------------
+
+    def _meshless_copy_for(self, method: str) -> "Device":
+        """A mesh-free copy, warning if a mesh is being discarded."""
+        if self.meshes:
+            logger.warning(
+                f"Calling device.{method} on a device whose mesh already "
+                f"exists returns a new device with no mesh. Call "
+                f"new_device.make_mesh() to generate the mesh for the new "
+                f"device."
+            )
+        return self.copy(with_mesh=False)
+
+    def scale(
+        self, xfact: float = 1, yfact: float = 1, origin: Tuple[float, float] = (0, 0)
+    ) -> "Device":
+        """Returns a new device (without a mesh) with its polygons scaled
+        horizontally and/or vertically about ``origin`` (negative factors
+        reflect)."""
+        _require_xy_origin(origin)
+        scaled = self._meshless_copy_for("scale()")
+        for polygon in scaled.get_polygons():
+            polygon.scale(xfact=xfact, yfact=yfact, origin=origin, inplace=True)
+        return scaled
+
+    def rotate(self, degrees: float, origin: Tuple[float, float] = (0, 0)) -> "Device":
+        """Returns a new device (without a mesh) rotated counterclockwise by
+        ``degrees`` about ``origin``."""
+        _require_xy_origin(origin)
+        rotated = self._meshless_copy_for("rotate()")
+        for polygon in rotated.get_polygons():
+            polygon.rotate(degrees, origin=origin, inplace=True)
+        return rotated
+
+    def mirror_layers(self, about_z: float = 0.0) -> "Device":
+        """Returns a new device (without a mesh) with its layers mirrored
+        about the plane ``z = about_z``."""
+        mirrored = self._meshless_copy_for("mirror_layers()")
+        for layer in mirrored.layers.values():
+            layer.z0 = about_z - layer.z0
+        return mirrored
+
+    def translate(
+        self,
+        dx: float = 0,
+        dy: float = 0,
+        dz: float = 0,
+        inplace: bool = False,
+    ) -> "Device":
+        """Translates the polygons, the meshes (kept, with their sites
+        shifted; see :meth:`Mesh.translate_sites`) and the layer heights.
+
+        Every site stays on its side of every outline of its layer: a
+        site on a hole's or a film's outline, which the shifted outline
+        and the shifted site round apart, would otherwise change sides and
+        the film's index sets with it (the JAX package's ``translate`` lets
+        that happen).  Such a site is moved by the few float64 ulps that
+        put it back (:func:`_restore_sides`).
+
+        Args:
+            dx, dy, dz: The shift in ``length_units``.
+            inplace: Shift this device instead of a deep copy.
+        """
+        target = self if inplace else self.copy(with_mesh=True, copy_mesh=True)
+        sides = {film: self._sides(film) for film in (self.meshes or {})}
+        for polygon in target.get_polygons():
+            polygon.translate(dx, dy, inplace=True)
+        for film, mesh in (target.meshes or {}).items():
+            mesh.translate_sites(dx, dy)
+            _restore_sides(mesh, target._layer_polygons(film), sides[film], (dx, dy))
+        if dz:
+            for layer in target.layers.values():
+                layer.z0 += dz
+        return target
+
+    def _layer_polygons(self, film: str) -> List[Polygon]:
+        return self.polygons_by_layer()[self.films[film].layer]
+
+    def _sides(self, film: str) -> List[np.ndarray]:
+        """For each polygon of the film's layer, which of its mesh's sites
+        it contains."""
+        sites = self.meshes[film].sites
+        return [polygon.contains_points(sites) for polygon in self._layer_polygons(film)]
+
+    @contextmanager
+    def translation(self, dx: float, dy: float, dz: float = 0):
+        """Context manager that translates the device in place and back."""
+        self.translate(dx, dy, dz=dz, inplace=True)
+        try:
+            yield
+        finally:
+            self.translate(-dx, -dy, dz=-dz, inplace=True)
 
     # -- meshing -------------------------------------------------------------
 
@@ -264,6 +430,25 @@ class Device:
             )
             outer = pops.resample_polygon(buffered, len(film.points))
             interior_features.insert(0, film.points)
+        # Opt-in triangulation cache (SUPERSCREEN_TPU_MESH_CACHE=dir): the
+        # final (post-smoothing) triangulation is keyed on the exact input
+        # geometry and meshing parameters, as in the JAX package (which
+        # also keys its extra meshing keywords: this one has none).
+        from . import mesh_cache
+
+        cache_params = dict(
+            min_points=min_points,
+            max_edge_length=max_edge_length,
+            preserve_boundary=bool(preserve_boundary or has_terminals),
+            smooth=int(smooth or 0),
+            extra=repr([]),
+        )
+        key = None
+        if mesh_cache.cache_dir() is not None:
+            key = mesh_cache.cache_key(outer, interior_features, cache_params)
+            cached = mesh_cache.load(key)
+            if cached is not None:
+                return Mesh.from_triangulation(*cached)
         points, triangles = mgen.generate_mesh(
             outer,
             feature_rings=interior_features,
@@ -272,10 +457,12 @@ class Device:
             preserve_boundary=preserve_boundary or has_terminals,
         )
         if smooth:
-            return Mesh.from_triangulation(
-                points, triangles, build_operators=False
-            ).smooth(smooth)
-        return Mesh.from_triangulation(points, triangles)
+            mesh = Mesh.from_triangulation(points, triangles, build_operators=False).smooth(smooth)
+        else:
+            mesh = Mesh.from_triangulation(points, triangles)
+        if key is not None:
+            mesh_cache.store(key, mesh.sites, mesh.elements)
+        return mesh
 
     def boundary_vertices(self, film: str) -> np.ndarray:
         """Boundary vertex indices for a film's mesh, ordered CCW.  For a
@@ -284,6 +471,35 @@ class Device:
         mesh = self.meshes[film]
         cycle = mgen.boundary_vertices(mesh.sites, mesh.elements)
         return _unwrap_terminals(cycle, mesh.sites, self.terminals.get(film, []))
+
+    def mesh_stats_dict(self) -> Optional[Dict[str, Dict[str, Union[int, float]]]]:
+        """Mesh information for all meshes (None without a mesh)."""
+        if self.meshes is None:
+            return None
+        return {name: mesh.stats() for name, mesh in self.meshes.items()}
+
+    def mesh_stats(self, precision: int = 3):
+        """An HTML table of mesh statistics (for notebooks)."""
+        all_stats = self.mesh_stats_dict()
+        if all_stats is None:
+            return None
+        rows = [("", "<b>length_units</b>", repr(self.length_units))]
+        for name, stats in all_stats.items():
+            label = f"<b>{name!r}</b>"
+            for key, value in stats.items():
+                shown = f"{value:.{precision}e}" if isinstance(value, float) else value
+                rows.append((label, f"<b>{key}</b>", shown))
+                label = ""  # only print the mesh name on its first row
+        body = "".join(
+            "<tr>" + "".join(f"<td>{col}</td>" for col in row) + "</tr>" for row in rows
+        )
+        html = f"<table><tr><h2>Mesh Statistics</h2></tr>{body}</table>"
+        try:
+            from IPython.display import HTML
+
+            return HTML(html)
+        except ImportError:
+            return html
 
     # -- mutual inductance ---------------------------------------------------
 
@@ -439,6 +655,291 @@ class Device:
             for it, solution in enumerate(solutions):
                 matrices[it, :, j] = fluxoid_column(solution)
         return matrices
+
+    # -- plotting ------------------------------------------------------------
+
+    def _figure_axes(self, count, ax, subplots, figsize, max_cols=2):
+        """Shared fig/axes setup for the plotting helpers.  Returns
+        ``(fig, axes_array, subplots)`` where axes_array has one entry per
+        plotted item (repeated when everything shares one axis)."""
+        from ..io import require
+
+        plt = require("matplotlib.pyplot")
+        if ax is not None:
+            return ax.get_figure(), np.array([ax] * count), False
+        if subplots:
+            from ..visualization import auto_grid
+
+            fig, axes = auto_grid(
+                count, max_cols=max_cols, figsize=figsize, constrained_layout=True
+            )
+            return fig, axes, True
+        fig, one = plt.subplots(figsize=figsize, constrained_layout=True)
+        return fig, np.array([one] * count), False
+
+    def _label_axis(self, ax) -> None:
+        ax.set_xlabel(f"$x$ [{self.length_units}]")
+        ax.set_ylabel(f"$y$ [{self.length_units}]")
+        ax.set_aspect("equal")
+
+    def plot_polygons(
+        self,
+        ax=None,
+        subplots: bool = False,
+        legend: bool = False,
+        figsize: Optional[Tuple[float, float]] = None,
+        **kwargs,
+    ):
+        """Plots all the device's polygons."""
+        if len(self.films) > 1 and subplots and ax is not None:
+            raise ValueError(
+                "Axes may not be provided if subplots is True and the device "
+                "has multiple films."
+            )
+        fig, axes, subplots = self._figure_axes(
+            len(self.films), ax, subplots, figsize
+        )
+        holes_in_film = self.holes_by_film()
+        for axis, (name, film) in zip(axes.flat, self.films.items()):
+            for polygon in (
+                [film] + holes_in_film[name] + self.terminals.get(name, [])
+            ):
+                polygon.plot(ax=axis, **kwargs)
+            if subplots:
+                axis.set_title(name)
+            if legend:
+                axis.legend(bbox_to_anchor=(1, 1), loc="upper left")
+            self._label_axis(axis)
+        return fig, axes if subplots else axes[0]
+
+    def plot_mesh(
+        self,
+        ax=None,
+        subplots: bool = False,
+        figsize: Optional[Tuple[float, float]] = None,
+        show_sites: bool = False,
+        show_edges: bool = True,
+        site_color=None,
+        edge_color=None,
+        linewidth: float = 0.75,
+        linestyle: str = "-",
+        marker: str = ".",
+    ):
+        """Plots all the device's meshes."""
+        if self.meshes is None:
+            raise ValueError(
+                "Mesh doesn't exist. Run Device.make_mesh() to generate one."
+            )
+        if len(self.films) > 1 and subplots and ax is not None:
+            raise ValueError(
+                "Axes may not be provided if subplots is True and the device "
+                "has multiple films."
+            )
+        fig, axes, subplots = self._figure_axes(
+            len(self.films), ax, subplots, figsize
+        )
+        for i, (axis, (name, mesh)) in enumerate(zip(axes.flat, self.meshes.items())):
+            mesh.plot(
+                ax=axis,
+                show_sites=show_sites,
+                show_edges=show_edges,
+                site_color=site_color if site_color is not None else f"C{i}",
+                edge_color=edge_color if edge_color is not None else f"C{i}",
+                linestyle=linestyle,
+                linewidth=linewidth,
+                marker=marker,
+            )
+            if subplots:
+                axis.set_title(name)
+            self._label_axis(axis)
+        return fig, axes if subplots else axes[0]
+
+    def patches(self) -> Dict[str, Dict[str, "object"]]:
+        """``{layer_name: {film_name: PathPatch}}`` for device visualization."""
+        from ..io import require
+
+        PathPatch = require("matplotlib.patches").PathPatch
+        Path = require("matplotlib.path").Path
+
+        def ring_path(points, reverse=False):
+            coords = points.tolist()
+            if reverse:
+                coords = coords[::-1]
+            codes = [Path.MOVETO] + [Path.LINETO] * (len(coords) - 2) + [
+                Path.CLOSEPOLY
+            ]
+            return coords, codes
+
+        holes_in_layer = self.polygons_by_layer("hole")
+        patches: Dict[str, Dict[str, object]] = {}
+        for layer, regions in self.polygons_by_layer().items():
+            hole_names = {h.name for h in holes_in_layer[layer]}
+            layer_patches = {}
+            for region in regions:
+                if region.name in hole_names:
+                    continue
+                coords, codes = ring_path(region.points)
+                is_abstract = region.name in self.abstract_regions
+                for hole in holes_in_layer[layer]:
+                    if not is_abstract and region.contains_points(
+                        hole.points
+                    ).all():
+                        # Punch the hole by appending its ring with reversed
+                        # orientation.
+                        hole_coords, hole_codes = ring_path(
+                            hole.points, reverse=True
+                        )
+                        coords += hole_coords
+                        codes += hole_codes
+                layer_patches[region.name] = PathPatch(Path(coords, codes))
+            if layer_patches:
+                patches[layer] = layer_patches
+        return patches
+
+    def draw(
+        self,
+        ax=None,
+        subplots: bool = False,
+        max_cols: int = 3,
+        legend: bool = False,
+        figsize: Optional[Tuple[float, float]] = None,
+        alpha: float = 0.5,
+        exclude: Optional[Union[str, List[str]]] = None,
+        layer_order: str = "increasing",
+    ):
+        """Draws all polygons in the device as matplotlib patches."""
+        if len(self.layers) > 1 and subplots and ax is not None:
+            raise ValueError(
+                "Axes may not be provided if subplots is True and the device "
+                "has multiple layers."
+            )
+        if layer_order.lower() not in ("increasing", "decreasing"):
+            raise ValueError(
+                f"Invalid layer_order: {layer_order}. "
+                f"Valid layer orders are ('increasing', 'decreasing')."
+            )
+        if isinstance(exclude, str):
+            exclude = [exclude]
+        exclude = set(exclude or [])
+
+        layers_by_height = sorted(self.layers.values(), key=lambda la: la.z0)
+        layer_names = [la.name for la in layers_by_height]
+        if layer_order.lower() == "decreasing":
+            layer_names.reverse()
+
+        fig, axes, subplots = self._figure_axes(
+            len(self.layers), ax, subplots, figsize, max_cols=max_cols
+        )
+        # Common axis limits with a 10% margin around all polygon vertices.
+        x, y = self.poly_points.T
+        cx, cy = (x.min() + x.max()) / 2, (y.min() + y.max()) / 2
+        half_w, half_h = 0.55 * np.ptp(x), 0.55 * np.ptp(y)
+
+        patches = self.patches()
+        used_axes = set()
+        labels: List[str] = []
+        handles: List[object] = []
+        for i, (layer, axis) in enumerate(zip(layer_names, axes.flat)):
+            axis.grid(False)
+            axis.set_xlim(cx - half_w, cx + half_w)
+            axis.set_ylim(cy - half_h, cy + half_h)
+            self._label_axis(axis)
+            if subplots:
+                labels, handles = [], []
+            first_in_layer = True
+            for name, patch in patches.get(layer, {}).items():
+                if name in exclude or name in self.holes:
+                    continue
+                patch.set_facecolor(f"C{i}")
+                patch.set_alpha(alpha)
+                axis.add_artist(patch)
+                used_axes.add(axis)
+                if first_in_layer:
+                    labels.append(layer)
+                    handles.append(patch)
+                    first_in_layer = False
+            if subplots:
+                axis.set_title(layer)
+                if legend:
+                    axis.legend(
+                        handles, labels, bbox_to_anchor=(1, 1), loc="upper left"
+                    )
+        if subplots:
+            for axis in fig.axes:
+                if axis not in used_axes:
+                    fig.delaxes(axis)
+            return fig, axes
+        if legend:
+            axes[0].legend(handles, labels, bbox_to_anchor=(1, 1), loc="upper left")
+        return fig, axes[0]
+
+    # -- serialization -------------------------------------------------------
+
+    def to_hdf5(
+        self,
+        path_or_group,
+        save_mesh: bool = True,
+        compress: bool = True,
+    ) -> None:
+        """Serializes the device to an HDF5 file or ``h5py.Group``, in the
+        JAX package's layout."""
+        with h5_context(path_or_group, "x") as root:
+            root.attrs.update(
+                name=self.name,
+                length_units=self.length_units,
+                solve_dtype=str(self.solve_dtype),
+            )
+            groups = {
+                "layers": self.layers,
+                "films": self.films,
+                "holes": self.holes,
+                "abstract_regions": self.abstract_regions,
+            }
+            for group_name, members in groups.items():
+                grp = new_group(root, group_name)
+                for name, member in members.items():
+                    member.to_hdf5(new_group(grp, name))
+            terminals_grp = new_group(root, "terminals")
+            for film_name, terms in self.terminals.items():
+                film_grp = new_group(terminals_grp, film_name)
+                for i, terminal in enumerate(terms):
+                    terminal.to_hdf5(new_group(film_grp, str(i)))
+            if save_mesh and self.meshes:
+                mesh_grp = new_group(root, "mesh")
+                for name, mesh in self.meshes.items():
+                    mesh.to_hdf5(new_group(mesh_grp, name), compress=compress)
+
+    @staticmethod
+    def from_hdf5(path_or_group) -> "Device":
+        """Loads a device from an HDF5 file or ``h5py.Group`` (written by
+        either package)."""
+        with h5_context(path_or_group, "r") as root:
+
+            def load_polygons(group_name):
+                return [Polygon.from_hdf5(g) for g in root[group_name].values()]
+
+            terminals = {
+                film: [
+                    Polygon.from_hdf5(grp[str(i)]) for i in range(len(grp))
+                ]
+                for film, grp in root["terminals"].items()
+            }
+            device = Device(
+                name=root.attrs["name"],
+                layers=[Layer.from_hdf5(g) for g in root["layers"].values()],
+                films=load_polygons("films"),
+                holes=load_polygons("holes"),
+                terminals=terminals,
+                abstract_regions=load_polygons("abstract_regions"),
+                length_units=root.attrs["length_units"],
+                solve_dtype=root.attrs["solve_dtype"],
+            )
+            if "mesh" in root:
+                device.meshes = {
+                    name: Mesh.from_hdf5(grp)
+                    for name, grp in root["mesh"].items()
+                }
+            return device
 
     def __eq__(self, other) -> bool:
         """Same name, layers, films, holes, terminals, abstract regions and

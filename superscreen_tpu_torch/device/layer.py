@@ -1,14 +1,17 @@
 """Layer: one plane of the device stack.
 
-Counterpart of ``superscreen_tpu/device/layer.py`` without HDF5.  A layer
+Counterpart of ``superscreen_tpu/device/layer.py``.  A layer
 fixes a vertical position ``z0`` and the screening strength of its films,
 given either as an effective penetration depth ``Lambda`` or as a London
 penetration depth plus film thickness
 (``Lambda = london_lambda**2 / thickness``).  Either may be a number or a
-position-dependent :class:`superscreen_tpu_torch.Parameter`.
+position-dependent :class:`superscreen_tpu_torch.Parameter`, which HDF5
+files hold dill-pickled, as the JAX package's do.
 """
 
 import numbers
+
+from ..io import deserialize_obj, serialize_obj
 
 __all__ = ["Layer"]
 
@@ -123,3 +126,35 @@ class Layer:
             f"london_lambda={fmt(self.london_lambda)}, "
             f"thickness={fmt(self.thickness)}, z0={self.z0:.3f})"
         )
+
+    # -- HDF5 ---------------------------------------------------------------
+    def to_hdf5(self, h5group) -> None:
+        """Writes the layer into ``h5group`` (an ``h5py.Group``) in the JAX
+        package's layout: a number is an attribute, a ``Parameter`` a
+        dill-pickled ``<name>.pickle`` attribute."""
+        h5group.attrs["name"] = self.name
+        h5group.attrs["z0"] = self.z0
+        tag, value = self._spec
+        h5group.attrs["spec"] = tag
+        if tag == _DIRECT:
+            serialize_obj(h5group, value, "Lambda", attr=True)
+        else:
+            h5group.attrs["thickness"] = value[1]
+            serialize_obj(h5group, value[0], "london_lambda", attr=True)
+
+    @staticmethod
+    def from_hdf5(h5group) -> "Layer":
+        """Reads a layer written by :meth:`to_hdf5` (or by the JAX package)."""
+        name = str(h5group.attrs["name"])
+        z0 = float(h5group.attrs["z0"])
+        has_london = (
+            "london_lambda" in h5group.attrs or "london_lambda.pickle" in h5group.attrs
+        )
+        if has_london:
+            return Layer(
+                name,
+                london_lambda=deserialize_obj(h5group, "london_lambda", attr=True),
+                thickness=float(h5group.attrs["thickness"]),
+                z0=z0,
+            )
+        return Layer(name, Lambda=deserialize_obj(h5group, "Lambda", attr=True), z0=z0)

@@ -7,7 +7,11 @@ operators stay in NumPy COO form on the host; the dense Brandt kernel
 at 20k sites it is 1.6 GB in float32, and the solver keeps only what it
 derives from it.  The triangle index used for interpolation
 (:meth:`Mesh.spatial_index`) is built on the host once per torch device
-and cached on the mesh, which every solution of a device shares.
+and cached on the mesh, which every solution of a device shares;
+:meth:`Mesh.translate_sites` shifts the sites and drops what is derived
+from them.  ``to_hdf5``/``from_hdf5`` write and read the JAX package's
+layout (they take an open ``h5py`` group), and ``triangulation`` and
+``plot`` import matplotlib when called.
 """
 
 from copy import deepcopy
@@ -17,11 +21,22 @@ import numpy as np
 import torch
 
 from ..ops import fem
+from ..io import new_group
 from ..ops import kernels
 from . import mesh_generation as mgen
 from .edge_mesh import EdgeMesh
 
 __all__ = ["Mesh", "MeshOperators"]
+
+# Datasets of a mesh saved uncompressed (besides the ``edge_mesh`` group).
+_MESH_FIELDS = (
+    "sites",
+    "elements",
+    "triangle_centroids",
+    "boundary_indices",
+    "vertex_areas",
+    "triangle_areas",
+)
 
 
 class Mesh:
@@ -59,6 +74,7 @@ class Mesh:
         self.operators = MeshOperators.from_mesh(self) if build_operators else None
         self._spatial_index: Dict[str, object] = {}
         self._edge_mesh = None
+        self._triangulation = None
 
     @property
     def edge_mesh(self) -> EdgeMesh:
@@ -101,6 +117,32 @@ class Mesh:
         """Indices of vertices on any mesh boundary (unordered)."""
         edges, is_boundary = mgen.get_edges(elements)
         return np.unique(edges[is_boundary])
+
+    @property
+    def triangulation(self):
+        """Matplotlib triangulation of the mesh (for plots; built on first
+        use, needs matplotlib)."""
+        if self._triangulation is None:
+            from ..io import require
+
+            x, y = self.sites.T
+            self._triangulation = require("matplotlib.tri").Triangulation(x, y, self.elements)
+        return self._triangulation
+
+    def translate_sites(self, dx: float, dy: float) -> None:
+        """Shifts every site by ``(dx, dy)`` in place, with the triangle
+        centroids, the edge centers and the operators' copy of the sites,
+        and drops the cached triangle indices and triangulation: they are
+        rebuilt at the new positions on first use."""
+        shift = np.array([[dx, dy]], dtype=float)
+        self.sites += shift
+        self.triangle_centroids += shift
+        if self.operators is not None and self.operators.sites is not self.sites:
+            self.operators.sites = self.operators.sites + shift
+        if self._edge_mesh is not None:
+            self._edge_mesh.centers = self._edge_mesh.centers + shift
+        self._spatial_index = {}
+        self._triangulation = None
 
     def spatial_index(self, torch_device):
         """Uniform-grid triangle index on ``torch_device`` for interpolation
@@ -171,6 +213,76 @@ class Mesh:
             sites, elements, build_operators=build_operators
         )
 
+    def plot(
+        self,
+        ax=None,
+        show_sites: bool = False,
+        show_edges: bool = True,
+        site_color=None,
+        edge_color="k",
+        linewidth: float = 0.75,
+        linestyle: str = "-",
+        marker: str = ".",
+    ):
+        """Plots the mesh (needs matplotlib)."""
+        from ..io import require
+
+        if ax is None:
+            _, ax = require("matplotlib.pyplot").subplots()
+        ax.set_aspect("equal")
+        x, y = self.sites.T
+        if show_edges:
+            ax.triplot(x, y, self.elements, color=edge_color, ls=linestyle, lw=linewidth)
+        if show_sites:
+            ax.plot(x, y, marker=marker, ls="", color=site_color)
+        return ax
+
+    # -- persistence -----------------------------------------------------
+
+    def to_hdf5(self, h5group, compress: bool = True) -> None:
+        """Saves the mesh to ``h5group`` (an ``h5py.Group``).  With
+        ``compress=True`` only sites and elements are stored; the rest is
+        rebuilt on load."""
+        stored = {"sites": self.sites, "elements": self.elements}
+        if not compress:
+            stored.update(
+                triangle_centroids=self.triangle_centroids,
+                boundary_indices=self.boundary_indices,
+                vertex_areas=self.vertex_areas,
+                triangle_areas=self.triangle_areas,
+            )
+        for name, value in stored.items():
+            h5group[name] = value
+        if not compress:
+            self.edge_mesh.to_hdf5(new_group(h5group, "edge_mesh"))
+
+    @staticmethod
+    def is_restorable(h5group) -> bool:
+        """True if the group has all data needed to restore the mesh without
+        recomputation."""
+        return all(key in h5group for key in _MESH_FIELDS + ("edge_mesh",))
+
+    @staticmethod
+    def from_hdf5(h5group) -> "Mesh":
+        """Loads a mesh from ``h5group`` (an ``h5py.Group``)."""
+        if not ("sites" in h5group and "elements" in h5group):
+            raise IOError("Could not load mesh due to missing data.")
+        if not Mesh.is_restorable(h5group):
+            return Mesh.from_triangulation(
+                sites=np.array(h5group["sites"]).squeeze(),
+                elements=np.array(h5group["elements"]),
+            )
+        mesh = Mesh(
+            sites=np.array(h5group["sites"], dtype=float),
+            elements=np.array(h5group["elements"], dtype=np.int64),
+            boundary_indices=np.array(h5group["boundary_indices"], dtype=np.int64),
+            vertex_areas=np.array(h5group["vertex_areas"], dtype=float),
+            triangle_areas=np.array(h5group["triangle_areas"], dtype=float),
+        )
+        mesh.triangle_centroids = np.array(h5group["triangle_centroids"], dtype=float)
+        mesh._edge_mesh = EdgeMesh.from_hdf5(h5group["edge_mesh"])
+        return mesh
+
 
 class MeshOperators:
     """Finite-element operators for a :class:`Mesh`.
@@ -232,3 +344,36 @@ class MeshOperators:
         sites = torch.as_tensor(self.sites, dtype=dtype, device=torch_device)
         weights = torch.as_tensor(self.weights, dtype=dtype, device=torch_device)
         return kernels.Q_matrix(sites, weights)
+
+    def Q(self, torch_device="cuda") -> torch.Tensor:
+        """The dense Brandt kernel ``Q`` in float64 on ``torch_device``
+        (``"cuda"`` by default; not cached, see :meth:`Q_dense`)."""
+        from ..solver.solve import resolve_torch_device
+
+        return self.Q_dense(torch.float64, resolve_torch_device(torch_device))
+
+    @staticmethod
+    def C_vector(points: np.ndarray, torch_device="cuda") -> np.ndarray:
+        """Brandt's boundary-regularization vector of ``points`` (NumPy in
+        and out, computed in ``points``' float dtype on ``torch_device``:
+        ``"cuda"`` by default, raising without a card, or ``"cpu"``)."""
+        from ..solver.solve import resolve_torch_device
+
+        points = torch.as_tensor(np.asarray(points), device=resolve_torch_device(torch_device))
+        return kernels.C_vector(points).cpu().numpy()
+
+    @staticmethod
+    def Q_matrix(points: np.ndarray, weights: np.ndarray, torch_device="cuda") -> np.ndarray:
+        """The dense Brandt kernel of ``points`` and ``weights`` (NumPy in
+        and out), assembled on ``torch_device`` by
+        :func:`superscreen_tpu_torch.ops.kernels.Q_matrix`: on the card its
+        ``q`` comes from the ``q_matrix`` kernel."""
+        from ..solver.solve import resolve_torch_device
+
+        torch_device = resolve_torch_device(torch_device)
+        points = torch.as_tensor(np.asarray(points), device=torch_device)
+        weights = torch.as_tensor(np.asarray(weights), dtype=points.dtype, device=torch_device)
+        return kernels.Q_matrix(points, weights).cpu().numpy()
+
+    def copy(self) -> "MeshOperators":
+        return deepcopy(self)

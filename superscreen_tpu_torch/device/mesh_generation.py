@@ -28,6 +28,7 @@ __all__ = [
     "generate_mesh",
     "smooth_mesh",
     "get_edges",
+    "get_edge_lengths",
     "boundary_vertices",
     "triangle_areas",
     "vertex_areas",
@@ -63,6 +64,12 @@ def get_edges(triangles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     edges = np.sort(edges, axis=1)
     edges, counts = np.unique(edges, return_counts=True, axis=0)
     return edges, counts == 1
+
+
+def get_edge_lengths(points: np.ndarray, triangles: np.ndarray) -> np.ndarray:
+    """Lengths of all unique edges in the triangulation."""
+    edges, _ = get_edges(triangles)
+    return np.linalg.norm(np.diff(points[edges], axis=1), axis=2).squeeze()
 
 
 def smooth_mesh(

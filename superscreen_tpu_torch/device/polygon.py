@@ -1,9 +1,13 @@
 """Planar polygon primitive.
 
-Counterpart of ``superscreen_tpu/device/polygon.py`` without plotting or
-HDF5.  Point queries use :func:`points_in_ring`, a NumPy crossing test
-that reproduces matplotlib's ``Path.contains_points`` decision for points
-on the boundary, so mesh index sets agree with the JAX package exactly.
+Counterpart of ``superscreen_tpu/device/polygon.py``.  Point queries use
+:func:`points_in_ring`, a NumPy crossing test that reproduces matplotlib's
+``Path.contains_points`` decision for points on the boundary, so mesh
+index sets agree with the JAX package exactly; a nonzero ``radius`` tests
+against the outline offset by ``radius / 2`` with mitred corners
+(:func:`offset_ring`), as matplotlib's stroked contour does.  Plotting and
+``path`` import matplotlib, and the HDF5 methods take an open ``h5py``
+group; neither is imported by this module.
 """
 
 import logging
@@ -18,7 +22,7 @@ from ..geometry import rotate as rotate_coords
 
 logger = logging.getLogger("device")
 
-__all__ = ["Polygon", "points_in_ring"]
+__all__ = ["Polygon", "offset_ring", "points_in_ring"]
 
 PolygonType = Union["Polygon", np.ndarray]
 
@@ -62,6 +66,53 @@ def points_in_ring(ring: np.ndarray, points: np.ndarray) -> np.ndarray:
         inside ^= crosses
         yflag0 = yflag1
     return inside
+
+
+def offset_ring(ring: np.ndarray, distance: float) -> np.ndarray:
+    """The closed CCW ``ring`` with every edge moved ``distance`` along its
+    outward normal (inward if negative), joined as matplotlib joins them.
+
+    This is the outline of the contour matplotlib strokes for
+    ``Path.contains_points(..., radius=r)``: Anti-Grain Geometry's
+    ``vcgen_contour`` at width ``r`` moves each edge by ``r / 2``.  At a
+    corner where the offset edges part (an outer join) they meet in a
+    mitre, cut where it would reach further than 4 ``|distance|`` from the
+    vertex; where they overlap (an inner join) they meet in a mitre only
+    if it stays within the shorter edge's length (at least 1.01
+    ``|distance|``) of the vertex, else in a bevel; a straight vertex gives
+    one point (``agg_math_stroke.h``, ``calc_join`` and
+    ``calc_miter`` with AGG's default limits).
+    """
+    verts = np.asarray(ring, dtype=float)
+    if np.array_equal(verts[0], verts[-1]):
+        verts = verts[:-1]
+    edges = np.roll(verts, -1, axis=0) - verts
+    normals = np.stack([edges[:, 1], -edges[:, 0]], axis=1)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    width = abs(distance)
+    out = []
+    # Vertex i joins edge i - 1 (normal a) and edge i (normal b).
+    for v, e0, e1, a, b in zip(
+        verts, np.roll(edges, 1, axis=0), edges, np.roll(normals, 1, axis=0), normals
+    ):
+        p0, p1 = v + distance * a, v + distance * b
+        turn = e0[0] * e1[1] - e0[1] * e1[0]
+        if turn == 0 or 1.0 + a @ b <= 0:
+            out.append(p0)
+            continue
+        tip = v + distance * (a + b) / (1.0 + a @ b)
+        reach = np.linalg.norm(tip - v)
+        if turn * distance < 0:  # inner join
+            limit = max(min(np.linalg.norm(e0), np.linalg.norm(e1)), 1.01 * width)
+            out.extend([tip] if reach <= limit else [p0, p1])
+        elif reach <= 4.0 * width:
+            out.append(tip)
+        else:
+            bevel = np.linalg.norm(0.5 * (p0 + p1) - v)
+            k = (4.0 * width - bevel) / (reach - bevel)
+            out.extend([p0 + (tip - p0) * k, p1 + (tip - p1) * k])
+    out = np.asarray(out)
+    return np.concatenate([out, out[:1]], axis=0)
 
 
 def _coerce_ring(points) -> np.ndarray:
@@ -126,6 +177,25 @@ class Polygon:
     def points(self, points) -> None:
         self._points = _coerce_ring(points)
 
+    @property
+    def polygon(self) -> np.ndarray:
+        """Alias of :attr:`points` (the JAX package's alias; its reference
+        returns a shapely object here)."""
+        return self._points
+
+    @property
+    def path(self):
+        """The boundary as a :class:`matplotlib.path.Path` (needs
+        matplotlib)."""
+        from ..io import require
+
+        return require("matplotlib.path").Path(self._points, closed=True)
+
+    def set_name(self, name: Optional[str]) -> "Polygon":
+        """Renames the polygon; returns ``self`` for chaining."""
+        self.name = name
+        return self
+
     def set_layer(self, layer: Optional[str]) -> "Polygon":
         """Re-assigns the polygon's layer; returns ``self`` for chaining."""
         self.layer = layer
@@ -152,8 +222,15 @@ class Polygon:
 
     # -- point queries ---------------------------------------------------
 
+    def _hit_mask(self, points: np.ndarray, radius: float) -> np.ndarray:
+        ring = self._points if radius == 0 else offset_ring(self._points, radius / 2)
+        return points_in_ring(ring, points)
+
     def contains_points(
-        self, points: np.ndarray, index: bool = False
+        self,
+        points: np.ndarray,
+        index: bool = False,
+        radius: float = 0,
     ) -> Union[bool, np.ndarray]:
         """Tests which of ``points`` fall inside the polygon (points on the
         outline are decided as by matplotlib, see :func:`points_in_ring`).
@@ -161,8 +238,20 @@ class Polygon:
         Args:
             points: ``(n, 2)`` query coordinates.
             index: Return the indices of the hits instead of a boolean mask.
+            radius: Signed margin: the outline is moved out by
+                ``radius / 2`` (in if negative) first, as matplotlib's
+                ``Path.contains_points`` does (see :func:`offset_ring`).
         """
-        mask = points_in_ring(self._points, points)
+        mask = self._hit_mask(points, radius)
+        return np.flatnonzero(mask) if index else mask
+
+    def on_boundary(
+        self, points: np.ndarray, radius: float = 1e-3, index: bool = False
+    ):
+        """Tests which of ``points`` lie near the boundary: inside the
+        outline grown by ``radius`` and outside the outline shrunk by it
+        (each moved by ``radius / 2``, as in :meth:`contains_points`)."""
+        mask = self._hit_mask(points, radius) & ~self._hit_mask(points, -radius)
         return np.flatnonzero(mask) if index else mask
 
     # -- meshing ---------------------------------------------------------
@@ -295,8 +384,36 @@ class Polygon:
         layer: Optional[str] = None,
     ) -> "Polygon":
         """Builds one polygon as the union of ``items``."""
+        return cls._from_fold("union", items, name, layer)
+
+    @classmethod
+    def from_intersection(
+        cls,
+        items: Iterable[PolygonType],
+        *,
+        name: Optional[str] = None,
+        layer: Optional[str] = None,
+    ) -> "Polygon":
+        """Builds one polygon as the intersection of ``items``."""
+        return cls._from_fold("intersection", items, name, layer)
+
+    @classmethod
+    def from_difference(
+        cls,
+        items: Iterable[PolygonType],
+        *,
+        name: Optional[str] = None,
+        layer: Optional[str] = None,
+        symmetric: bool = False,
+    ) -> "Polygon":
+        """Builds one polygon as the (symmetric) difference of ``items``."""
+        op = "symmetric_difference" if symmetric else "difference"
+        return cls._from_fold(op, items, name, layer)
+
+    @classmethod
+    def _from_fold(cls, operation, items, name, layer) -> "Polygon":
         head, *tail = items
-        return cls(name=name, layer=layer, points=head)._fold("union", tail, name)
+        return cls(name=name, layer=layer, points=head)._fold(operation, tail, name)
 
     # -- offsetting / resampling -----------------------------------------
 
@@ -331,6 +448,16 @@ class Polygon:
 
     # -- misc ------------------------------------------------------------
 
+    def plot(self, ax=None, **kwargs):
+        """Draws the boundary on a matplotlib Axes (created if needed)."""
+        from ..io import require
+
+        if ax is None:
+            _, ax = require("matplotlib.pyplot").subplots()
+        ax.plot(*self._points.T, **dict(kwargs, label=self.name))
+        ax.set_aspect("equal")
+        return ax
+
     def copy(self) -> "Polygon":
         return deepcopy(self)
 
@@ -351,4 +478,22 @@ class Polygon:
             return False
         return self._points.shape == other._points.shape and np.allclose(
             self._points, other._points
+        )
+
+    def to_hdf5(self, h5group) -> None:
+        """Writes the polygon into ``h5group`` (an ``h5py.Group``): name and
+        layer as attributes, the vertices as the ``points`` dataset."""
+        for attr in ("name", "layer"):
+            value = getattr(self, attr)
+            if value:
+                h5group.attrs[attr] = value
+        h5group["points"] = self._points
+
+    @staticmethod
+    def from_hdf5(h5group) -> "Polygon":
+        """Reads a polygon written by :meth:`to_hdf5`."""
+        return Polygon(
+            name=h5group.attrs.get("name", None),
+            layer=h5group.attrs.get("layer", None),
+            points=np.asarray(h5group["points"]),
         )

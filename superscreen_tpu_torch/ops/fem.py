@@ -27,9 +27,13 @@ __all__ = [
     "gather_form",
     "gather_matvec",
     "gather_matvec_batch",
+    "coo_to_dense",
     "triangle_areas",
     "vertex_areas",
+    "centroids",
+    "adjacency_matrix",
     "in_polygon",
+    "laplace_operator",
     "build_laplacian_coo",
     "gradient_triangles_coo",
     "gradient_vertices_coo",
@@ -132,6 +136,39 @@ class COO:
             vals=sums,
             shape=self.shape,
         )
+
+    @property
+    def T(self) -> "COO":
+        """The transpose."""
+        return COO(self.cols, self.rows, self.vals, (self.shape[1], self.shape[0]))
+
+
+def coo_to_dense(coo: COO, dtype=None) -> np.ndarray:
+    """The dense NumPy array of a COO matrix (duplicates summed), in
+    ``dtype`` (default: the values' dtype)."""
+    out = np.zeros(coo.shape, dtype=dtype or coo.vals.dtype)
+    np.add.at(out, (coo.rows, coo.cols), coo.vals.astype(out.dtype))
+    return out
+
+
+def centroids(points: np.ndarray, triangles: np.ndarray) -> np.ndarray:
+    """Triangle centroid coordinates."""
+    return np.asarray(points)[np.asarray(triangles)].mean(axis=1)
+
+
+def adjacency_matrix(triangles: np.ndarray, sparse: bool = False) -> Union[np.ndarray, COO]:
+    """Vertex adjacency matrix of the triangulation (dense NumPy by default,
+    a :class:`COO` when ``sparse``)."""
+    triangles = np.asarray(triangles)
+    edges = np.concatenate([triangles[:, [0, 1]], triangles[:, [1, 2]], triangles[:, [2, 0]]])
+    n = int(triangles.max()) + 1
+    adj = np.zeros((n, n), dtype=int)
+    adj[edges[:, 0], edges[:, 1]] = 1
+    adj[edges[:, 1], edges[:, 0]] = 1
+    if sparse:
+        rows, cols = np.nonzero(adj)
+        return COO(rows, cols, np.ones(len(rows)), (n, n))
+    return adj
 
 
 def in_polygon(
@@ -246,6 +283,18 @@ def build_laplacian_coo(
     inv_mass = 1.0 / np.asarray(masses)
     vals = vals * inv_mass[rows]
     return COO(rows, cols, vals, (n, n))
+
+
+def laplace_operator(
+    points: np.ndarray,
+    triangles: np.ndarray,
+    masses: Optional[np.ndarray] = None,
+    weight_method: Literal["uniform", "half_cotangent", "inv_euclidean"] = "half_cotangent",
+) -> np.ndarray:
+    """The dense Laplace-Beltrami operator ``inv(M) @ L`` (NumPy)."""
+    return coo_to_dense(
+        build_laplacian_coo(points, triangles, masses=masses, weight_method=weight_method)
+    )
 
 
 def gradient_triangles_coo(

@@ -24,6 +24,7 @@ import torch
 from . import cuda_kernels
 
 __all__ = [
+    "cdist",
     "q_matrix",
     "q_apply_rect",
     "q_apply",
@@ -54,6 +55,17 @@ def _uses_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     raise ValueError(f"Unsupported tensor device {t.device} (expected cpu or cuda).")
+
+
+def cdist(XA: torch.Tensor, XB: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
+    """Pairwise distances between two point sets (2D or 3D), on their
+    device (plain PyTorch: no kernel of its own)."""
+    if metric not in ("euclidean", "sqeuclidean"):
+        raise ValueError(
+            f"Metric must be one of ('euclidean', 'sqeuclidean'), got {metric!r}."
+        )
+    d2 = torch.sum((XA[:, None, :] - XB[None, :, :]) ** 2, dim=-1)
+    return d2 if metric == "sqeuclidean" else torch.sqrt(d2)
 
 
 def _q_block(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

@@ -1,28 +1,30 @@
 """Solution containers and post-processing.
 
-Counterpart of ``superscreen_tpu/solution.py`` without file I/O and
-plotting.  ``FilmSolution`` holds the raw per-film arrays produced by the
-solver (NumPy); ``Solution`` layers post-processing on top: interpolation
+Counterpart of ``superscreen_tpu/solution.py``.  ``FilmSolution`` holds
+the raw per-film arrays produced by the solver (NumPy); ``Solution``
+layers post-processing on top: interpolation
 (:mod:`superscreen_tpu_torch.ops.interp`), flux and fluxoid integrals, and
 the field and vector potential anywhere in space.  The interpolation and
 the pairwise sums run on the solution's ``torch_device`` (the card unless
 the solution was made for the CPU); geometry, units and the quadratures
-stay NumPy on the host.
+stay NumPy on the host.  HDF5 files follow the JAX package's layout, so
+either package reads the other's; they and the plot aliases need
+``h5py``/``dill`` and matplotlib, imported when called.
 """
 
 import datetime as dt
 import logging
 import numbers
-import platform
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Literal, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Literal, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
-import scipy
 import torch
 
+from .about import version_dict
 from .device import Device, Polygon
 from .geometry import path_vectors
+from .io import deserialize_obj, h5_context, new_group, require, serialize_obj
 from .ops import interp as interp_ops
 from .ops.fem import in_polygon
 from .units import Quantity
@@ -64,6 +66,17 @@ class Vortex:
     film: str
     nPhi0: float = 1
 
+    def to_hdf5(self, h5group) -> None:
+        """Writes the vortex as attributes of ``h5group`` (an ``h5py.Group``)."""
+        for key in ("x", "y", "film", "nPhi0"):
+            h5group.attrs[key] = getattr(self, key)
+
+    @staticmethod
+    def from_hdf5(h5group) -> "Vortex":
+        """Reads a vortex written by :meth:`to_hdf5`."""
+        attrs = h5group.attrs
+        return Vortex(attrs["x"], attrs["y"], attrs["film"], attrs["nPhi0"])
+
 
 @dataclass(eq=False)
 class FilmSolution:
@@ -94,6 +107,20 @@ class FilmSolution:
                 total = total + self.field_from_other_films
             self._total_field = total
         return self._total_field
+
+    def to_hdf5(self, h5group) -> None:
+        """Writes the arrays as datasets of ``h5group`` (an ``h5py.Group``)."""
+        h5group["stream"] = self.stream
+        h5group["current_density"] = self.current_density
+        h5group["applied_field"] = self.applied_field
+        h5group["self_field"] = self.self_field
+        if self.field_from_other_films is not None:
+            h5group["field_from_other_films"] = self.field_from_other_films
+
+    @staticmethod
+    def from_hdf5(h5group) -> "FilmSolution":
+        """Reads a film solution written by :meth:`to_hdf5`."""
+        return FilmSolution(**{key: np.array(val) for key, val in h5group.items()})
 
     def is_close(
         self, other: "FilmSolution", rtol: float = 1e-4, atol: float = 1e-7
@@ -136,16 +163,6 @@ def _normalize_coordinates(positions, zs, dtype):
     if not isinstance(z, np.ndarray):
         raise ValueError(f"Expected zs to be an ndarray, but got {type(z)}.")
     return xy, z
-
-
-def _version_dict() -> Dict[str, str]:
-    """Versions of the interpreter and of what this package imports."""
-    return {
-        "python": platform.python_version(),
-        "numpy": np.__version__,
-        "scipy": scipy.__version__,
-        "torch": torch.__version__,
-    }
 
 
 class Solution:
@@ -205,7 +222,7 @@ class Solution:
         self._current_units = current_units
         self._solver = solver
         self._time_created = dt.datetime.now()
-        self._version_info = _version_dict()
+        self._version_info = version_dict()
 
     @property
     def field_units(self) -> str:
@@ -776,6 +793,103 @@ class Solution:
             potentials[name] = quantity if with_units else quantity.magnitude
         return sum(potentials.values()) if return_sum else potentials
 
+    # -- serialization -------------------------------------------------------
+
+    def to_hdf5(
+        self,
+        path_or_group,
+        device_path: Optional[str] = None,
+        compress: bool = True,
+    ) -> None:
+        """Saves the Solution to an HDF5 file or ``h5py.Group``, in the JAX
+        package's layout (the applied-field callable is dill-pickled).
+
+        Args:
+            path_or_group: HDF5 path or open group.
+            device_path: In-file path to an already-saved Device (soft-linked
+                instead of re-saving).
+            compress: Save the mesh compressed.
+        """
+        with h5_context(path_or_group, "x") as root:
+            root.attrs.update(
+                time_created=self.time_created.isoformat(),
+                field_units=self.field_units,
+                current_units=self.current_units,
+                solver=self.solver,
+            )
+            new_group(root, "version_info").attrs.update(self.version_info)
+            if device_path is not None:
+                root["device"] = require("h5py").SoftLink(device_path)
+            else:
+                self.device.to_hdf5(new_group(root, "device"), save_mesh=True, compress=compress)
+            films_grp = new_group(root, "film_solutions")
+            for name, film_solution in self.film_solutions.items():
+                film_solution.to_hdf5(new_group(films_grp, name))
+            vortex_grp = new_group(root, "vortices")
+            for i, vortex in enumerate(self.vortices):
+                vortex.to_hdf5(new_group(vortex_grp, str(i)))
+            serialize_obj(root, self.applied_field_func, "applied_field_func")
+            new_group(root, "circulating_currents").attrs.update(self.circulating_currents)
+            terminals_grp = new_group(root, "terminal_currents")
+            for film_name, currents in self.terminal_currents.items():
+                new_group(terminals_grp, film_name).attrs.update(currents)
+
+    @staticmethod
+    def from_hdf5(path_or_group, torch_device="cuda") -> "Solution":
+        """Loads a Solution from an HDF5 file or ``h5py.Group`` (written by
+        either package); its post-processing runs on ``torch_device``."""
+        with h5_context(path_or_group, "r") as root:
+            solution = Solution(
+                device=Device.from_hdf5(root["device"]),
+                film_solutions={
+                    name: FilmSolution.from_hdf5(grp)
+                    for name, grp in root["film_solutions"].items()
+                },
+                applied_field_func=deserialize_obj(root, "applied_field_func"),
+                vortices=[
+                    Vortex.from_hdf5(root["vortices"][i])
+                    for i in sorted(root["vortices"], key=int)
+                ],
+                circulating_currents=dict(root["circulating_currents"].attrs),
+                terminal_currents={
+                    name: dict(grp.attrs) for name, grp in root["terminal_currents"].items()
+                },
+                current_units=root.attrs["current_units"],
+                field_units=root.attrs["field_units"],
+                solver=root.attrs["solver"],
+                torch_device=torch_device,
+            )
+            solution._time_created = dt.datetime.fromisoformat(root.attrs["time_created"])
+            solution._version_info = dict(root["version_info"].attrs)
+        return solution
+
+    @staticmethod
+    def save_solutions(
+        solutions: Sequence["Solution"],
+        path_or_group,
+        compress: bool = True,
+    ) -> None:
+        """Saves a series of Solutions to HDF5: a Device they share is
+        stored once at ``device`` and soft-linked from each entry."""
+        if not solutions:
+            return
+        shared_device = solutions[0].device
+        with h5_context(path_or_group, "x") as root:
+            device_grp = new_group(root, "device")
+            shared_device.to_hdf5(device_grp)
+            for i, solution in enumerate(solutions):
+                link = device_grp.name if solution.device == shared_device else None
+                solution.to_hdf5(new_group(root, str(i)), device_path=link, compress=compress)
+
+    @staticmethod
+    def load_solutions(path_or_group, torch_device="cuda") -> List["Solution"]:
+        """Loads a series of Solutions (groups ``"0"``, ``"1"``, ...) from
+        HDF5, as written by :meth:`save_solutions` or by
+        ``solve(save_path=...)``."""
+        with h5_context(path_or_group, "r") as root:
+            indices = sorted((key for key in root if key.isdigit()), key=int)
+            return [Solution.from_hdf5(root[i], torch_device=torch_device) for i in indices]
+
     # -- equality ------------------------------------------------------------
 
     def equals(self, other: Any, require_same_timestamp: bool = False) -> bool:
@@ -802,3 +916,30 @@ class Solution:
 
     def __eq__(self, other) -> bool:
         return self.equals(other, require_same_timestamp=True)
+
+    # -- plot aliases --------------------------------------------------------
+
+    def plot_streams(self, **kwargs):
+        """Alias for :func:`superscreen_tpu_torch.visualization.plot_streams`."""
+        from .visualization import plot_streams
+
+        return plot_streams(self, **kwargs)
+
+    def plot_currents(self, **kwargs):
+        """Alias for :func:`superscreen_tpu_torch.visualization.plot_currents`."""
+        from .visualization import plot_currents
+
+        return plot_currents(self, **kwargs)
+
+    def plot_fields(self, **kwargs):
+        """Alias for :func:`superscreen_tpu_torch.visualization.plot_fields`."""
+        from .visualization import plot_fields
+
+        return plot_fields(self, **kwargs)
+
+    def plot_field_at_positions(self, points: np.ndarray, **kwargs):
+        """Alias for
+        :func:`superscreen_tpu_torch.visualization.plot_field_at_positions`."""
+        from .visualization import plot_field_at_positions
+
+        return plot_field_at_positions(self, points, **kwargs)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import Device
+from ..io import new_group
 from ..solution import FilmSolution, Solution, Vortex
 from ..sources import ConstantField
 from ..sweep import (
@@ -119,6 +120,98 @@ class FactorizedModel:
     hp_systems: Dict[str, object] = field(default_factory=dict)
     fft_grids: Optional[Dict[str, object]] = None
 
+    def to_hdf5(self, h5group) -> None:
+        """Saves the model, its LU factors included, to ``h5group`` (an
+        ``h5py.Group``) in the JAX package's group layout; the tensors come
+        to the host here.  The float64 twin of ``solve(high_precision=True)``
+        and the FFT grids are not saved: they are rebuilt on first use."""
+        h5group.attrs["current_units"] = self.current_units
+        self.device.to_hdf5(new_group(h5group, "device"))
+        _save_mapping(h5group, "film_info", self.film_info)
+        _save_mapping(h5group, "film_systems", self.film_systems)
+        holes = new_group(h5group, "hole_systems")
+        for film, systems in self.hole_systems.items():
+            _save_mapping(holes, film, systems)
+        _save_mapping(h5group, "terminal_systems", self.terminal_systems)
+        terms = new_group(h5group, "terminal_currents")
+        for film, currents in self.terminal_currents.items():
+            new_group(terms, film).attrs.update(currents)
+        new_group(h5group, "circulating_currents").attrs.update(self.circulating_currents)
+        flat_vortices = [v for vs in self.vortices.values() for v in vs]
+        _save_mapping(h5group, "vortices", {str(i): v for i, v in enumerate(flat_vortices)})
+
+    @staticmethod
+    def from_hdf5(h5group, torch_device="cuda") -> "FactorizedModel":
+        """Loads a model saved by :meth:`to_hdf5`, or a JAX package model
+        whose films are LU-factorized, with its tensors on ``torch_device``
+        (``"cuda"`` by default; raises without a card).
+
+        The film data the solve runs on is rebuilt from the loaded systems:
+        a dense film's ``Q`` comes from the file when the JAX package wrote
+        it, else it is assembled again on ``torch_device`` exactly as
+        :func:`factorize_model` assembled it.  A JAX low-memory film's hole
+        vectors, padded to the shared site count, are cut to the film's."""
+        torch_device = resolve_torch_device(torch_device)
+        device = Device.from_hdf5(h5group["device"])
+        film_info = {
+            name: FilmInfo.from_hdf5(grp, torch_device)
+            for name, grp in h5group["film_info"].items()
+        }
+
+        def systems(grp):
+            return {key: LinearSystem.from_hdf5(sub, torch_device) for key, sub in grp.items()}
+
+        hole_systems = {film: systems(grp) for film, grp in h5group["hole_systems"].items()}
+        for film, holes in hole_systems.items():
+            n = len(device.meshes[film].sites)
+            for system in holes.values():
+                if system.A.ndim == 1:
+                    system.A = system.A[:n].contiguous()
+        terminal_systems = {
+            film: TerminalSystems.from_hdf5(grp, torch_device)
+            for film, grp in h5group["terminal_systems"].items()
+        }
+        for film, terms in terminal_systems.items():
+            # One set of hole systems, as factorize_model builds it.
+            terms.holes = hole_systems[film]
+        vortex_grp = h5group["vortices"]
+        vortices = {film: [] for film in film_info}
+        for i in sorted(vortex_grp, key=int):
+            vortex = Vortex.from_hdf5(vortex_grp[i])
+            vortices[vortex.film].append(vortex)
+        with highest_matmul_precision():
+            for name, info in film_info.items():
+                if info.dense_kernel and info.kernel is None and name not in device.terminals:
+                    info.kernel = device.meshes[name].operators.Q_dense(
+                        torch_dtype(info.sites.dtype), torch_device
+                    )
+                info.vortices = tuple(vortices[name])
+            model = FactorizedModel(
+                device=device,
+                torch_device=torch_device,
+                film_info=film_info,
+                film_systems=systems(h5group["film_systems"]),
+                hole_systems=hole_systems,
+                film_data={},
+                circulating_currents=dict(h5group["circulating_currents"].attrs),
+                current_units=str(h5group.attrs["current_units"]),
+                terminal_systems=terminal_systems,
+                terminal_currents={
+                    film: dict(grp.attrs) for film, grp in h5group["terminal_currents"].items()
+                },
+                vortices={name: info.vortices for name, info in film_info.items()},
+            )
+            for name, terms in terminal_systems.items():
+                # The film's main system is one of its terminal blocks.
+                model.film_systems[name] = (
+                    terms.film_without_boundary_or_holes
+                    if film_info[name].hole_indices
+                    else terms.film_without_boundary
+                )
+            model.film_data = {name: film_sweep_data(model, name) for name in device.films}
+            model.film_data_vortices = vortex_snapshot(model)
+        return model
+
     def set_circulating_currents(self, circulating_currents: Dict[str, float]) -> None:
         """Sets the circulating currents (floats in ``current_units``)
         without re-factorizing."""
@@ -158,6 +251,15 @@ class FactorizedModel:
         new.vortices = dict(self.vortices)
         new.film_data = dict(self.film_data)
         return new
+
+
+def _save_mapping(parent, name: str, mapping: Dict):
+    """Writes a ``{key: obj}`` dict of ``to_hdf5``-able objects as one
+    subgroup per key under ``parent[name]``."""
+    grp = new_group(parent, name)
+    for key, obj in mapping.items():
+        obj.to_hdf5(new_group(grp, key))
+    return grp
 
 
 def factorize_model(
@@ -247,6 +349,53 @@ def factorize_model(
     return model
 
 
+class _SolutionSink:
+    """Sinks the Solutions a solve produces: incremental HDF5 saving (group
+    ``str(i)`` per solution, the device saved once at ``/device``) and the
+    returned list.  Use as a context manager so the file closes even if a
+    step raises."""
+
+    def __init__(self, device: Device, save_path, keep: bool):
+        self._keep = keep
+        self._solutions: List[Solution] = []
+        self._h5file = None
+        self._count = 0
+        if save_path is not None:
+            from ..io import require
+
+            self._h5file = require("h5py").File(save_path, "x")
+            device.to_hdf5(new_group(self._h5file, "device"))
+
+    def __enter__(self) -> "_SolutionSink":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._h5file is not None:
+            self._h5file.close()
+
+    def append(self, solution: Solution) -> None:
+        if self._h5file is not None:
+            solution.to_hdf5(new_group(self._h5file, str(self._count)), device_path="/device")
+        self._count += 1
+        if self._keep:
+            self._solutions.append(solution)
+
+    def result(self) -> Optional[List[Solution]]:
+        return self._solutions if self._keep else None
+
+
+def _progress(items, desc: str, enabled: bool):
+    """``items`` behind a tqdm bar when ``enabled`` and tqdm is installed
+    (without tqdm there is no bar)."""
+    if not enabled:
+        return items
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return items
+    return tqdm(items, desc=desc)
+
+
 def _sample_applied_fields(
     device: Device, applied_field: Callable, field_conversion: float, dtype=None
 ) -> Dict[str, np.ndarray]:
@@ -316,13 +465,15 @@ def solve(
             to ``numpy.allclose``'s tolerances against ``h``, and a failure
             is logged as a warning.  Matrix-free films are not checked.
         iterations: Number of self-consistent coupling rounds.
-        return_solutions: Must be True: the solutions are not saved, so
-            they are always returned.
-        save_path: HDF5 path for incremental saving; not supported yet
-            (must be None).
+        return_solutions: Return the Solutions (else None: use with
+            ``save_path``).
+        save_path: HDF5 path for incremental saving: one group ``"0"``,
+            ``"1"``, ... per Solution, the device once at ``/device``
+            (read back with :meth:`Solution.load_solutions`; needs h5py).
         log_level: Logging level, handed to ``logging.basicConfig``.
-        progress_bar: Accepted for callers of the JAX package; the coupling
-            rounds show no progress bar.
+        progress_bar: Show a tqdm bar over the Solutions as they are made
+            and saved (the rounds run as one batch before), if tqdm is
+            installed.
         high_precision: Solve to float64 accuracy around the float32
             factorizations (see :mod:`superscreen_tpu_torch.solver.refine`):
             float64 systems on the torch device, every film solve refined
@@ -338,15 +489,11 @@ def solve(
 
     Returns:
         A list of ``iterations + 1`` Solutions for a multi-film device
-        with ``iterations >= 1``, else one Solution.
+        with ``iterations >= 1``, else one Solution; None if
+        ``return_solutions`` is False.
     """
     if log_level is not None:
         logging.basicConfig(level=log_level)
-    if save_path is not None or not return_solutions:
-        raise NotImplementedError(
-            "save_path and return_solutions=False need Solution.to_hdf5, which is not "
-            "ported yet (ROADMAP item 9, host conveniences)."
-        )
     _check_coupling(coupling)  # before the factorization, and with high_precision
     torch_device = resolve_torch_device(torch_device)
     if model is None:
@@ -419,29 +566,31 @@ def solve(
         {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)
     )
     inv = 1.0 / field_conversion
-    solutions = []
-    for i in range(iterations + 1 if coupled else 1):
-        film_solutions = {
-            name: FilmSolution(
-                stream=gs[name][i, 0],
-                current_density=Js[name][i, 0],
-                applied_field=applied_fields[name] * inv,
-                self_field=selfs[name][i, 0] * inv,
-                field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
+    vortex_list = [v for vs in model.vortices.values() for v in vs]
+    rounds = range(iterations + 1 if coupled else 1)
+    with _SolutionSink(device, save_path, return_solutions) as sink:
+        for i in _progress(rounds, "Solutions", progress_bar):
+            film_solutions = {
+                name: FilmSolution(
+                    stream=gs[name][i, 0],
+                    current_density=Js[name][i, 0],
+                    applied_field=applied_fields[name] * inv,
+                    self_field=selfs[name][i, 0] * inv,
+                    field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
+                )
+                for name in films
+            }
+            sink.append(
+                Solution(
+                    device=device,
+                    film_solutions=film_solutions,
+                    applied_field_func=applied_field,
+                    field_units=field_units,
+                    current_units=current_units,
+                    circulating_currents=model.circulating_currents,
+                    terminal_currents=model.terminal_currents,
+                    vortices=vortex_list,
+                    torch_device=torch_device,
+                )
             )
-            for name in films
-        }
-        solutions.append(
-            Solution(
-                device=device,
-                film_solutions=film_solutions,
-                applied_field_func=applied_field,
-                field_units=field_units,
-                current_units=current_units,
-                circulating_currents=model.circulating_currents,
-                terminal_currents=model.terminal_currents,
-                vortices=[v for vs in model.vortices.values() for v in vs],
-                torch_device=torch_device,
-            )
-        )
-    return solutions
+    return sink.result()

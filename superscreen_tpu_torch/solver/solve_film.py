@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import Device
+from ..io import new_group
 from ..ops import kernels, linalg
 from ..ops.fem import COO
 from .utils import FilmInfo, stream_from_terminal_current
@@ -47,6 +48,8 @@ __all__ = [
     "terminal_boundary_stream",
     "boundary_stream_from_indices",
     "solve_from_boundary_stream",
+    "permutation_to_pivots",
+    "pivots_to_permutation",
 ]
 
 #: Device bytes one low-memory film's factorization may take at its peak;
@@ -86,6 +89,72 @@ class LinearSystem:
     lu_piv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     cg_op: Optional[Dict[str, torch.Tensor]] = None
 
+    def to_hdf5(self, h5group) -> None:
+        """Writes the system into ``h5group`` (an ``h5py.Group``) in the JAX
+        package's layout: ``A``, ``indices``, and the factors as ``lu`` and
+        0-based LAPACK ``piv`` (the JAX package's convention); the
+        matrix-free pieces of a film solved by CG or BiCGStab go to a
+        ``matrix_free`` group of this package's own.  The tensors come to
+        the host here."""
+        if self.A is not None:
+            h5group["A"] = self.A.cpu().numpy()
+        h5group["indices"] = np.asarray(self.indices)
+        if self.lu_piv is not None:
+            lu, perm = self.lu_piv
+            h5group["lu"] = lu.cpu().numpy()
+            h5group["piv"] = permutation_to_pivots(perm.cpu().numpy())
+        if self.cg_op is not None:
+            grp = new_group(h5group, "matrix_free")
+            for key, value in self.cg_op.items():
+                if isinstance(value, torch.Tensor):
+                    grp[key] = value.cpu().numpy()
+                else:
+                    grp.attrs[key] = value
+        # The (grad Lambda) . grad term is part of A here.
+        h5group.attrs["grad_Lambda_term"] = 0.0
+
+    @staticmethod
+    def from_hdf5(h5group, torch_device) -> "LinearSystem":
+        """Reads a system written by :meth:`to_hdf5` or by the JAX package,
+        with its tensors on ``torch_device``.
+
+        A JAX low-memory film's LU system is padded with a decoupled
+        identity block up to a multiple of 2048: ``A``, ``lu`` and ``piv``
+        are cut back to ``len(indices)`` (partial pivoting never leaves the
+        film's block, so the cut factors are those of the film's system).
+        A system the JAX package factorized in a way this package does not
+        (its ``"cg"``, ``"chol"`` and ``"inv"`` factorizations) raises
+        ``NotImplementedError`` naming the tag.
+        """
+        for tag, key in (("cg", "cg_sub_sites"), ("chol", "chol_L"), ("inv", "inv_M")):
+            if key in h5group:
+                raise NotImplementedError(
+                    f"The system's {tag!r} factorization of the JAX package has no "
+                    "counterpart here; refactorize the model with superscreen_tpu_torch."
+                )
+        indices = np.array(h5group["indices"])
+        ni = len(indices)
+
+        def tensor(array):
+            return torch.as_tensor(np.ascontiguousarray(array), device=torch_device)
+
+        A = np.array(h5group["A"]) if "A" in h5group else None
+        lu_piv = None
+        if "lu" in h5group:
+            lu, piv = np.array(h5group["lu"]), np.array(h5group["piv"])
+            A, lu, piv = A[:ni, :ni], lu[:ni, :ni], piv[:ni]
+            # Column-major, as ``torch.linalg.lu_factor`` returns it: the
+            # triangular solves then sum in the same order, to the bit.
+            lu_piv = (tensor(lu.T).mT, tensor(pivots_to_permutation(piv)))
+        cg_op = None
+        if "matrix_free" in h5group:
+            grp = h5group["matrix_free"]
+            cg_op = {key: tensor(np.array(value)) for key, value in grp.items()}
+            cg_op.update({key: bool(value) for key, value in grp.attrs.items()})
+        return LinearSystem(
+            A=None if A is None else tensor(A), indices=indices, lu_piv=lu_piv, cg_op=cg_op
+        )
+
 
 @dataclass
 class TerminalSystems:
@@ -106,6 +175,65 @@ class TerminalSystems:
     holes: Dict[str, LinearSystem]
     film_without_boundary: LinearSystem
     film_without_boundary_or_holes: Optional[LinearSystem] = None
+
+    def to_hdf5(self, h5group) -> None:
+        """Writes the systems into ``h5group`` (an ``h5py.Group``)."""
+        h5group.attrs["film"] = self.film
+        self.boundary.to_hdf5(new_group(h5group, "boundary"))
+        holes_grp = new_group(h5group, "holes")
+        for name, system in self.holes.items():
+            system.to_hdf5(new_group(holes_grp, name))
+        self.film_without_boundary.to_hdf5(new_group(h5group, "film_without_boundary"))
+        if self.film_without_boundary_or_holes is not None:
+            self.film_without_boundary_or_holes.to_hdf5(
+                new_group(h5group, "film_without_boundary_or_holes")
+            )
+
+    @staticmethod
+    def from_hdf5(h5group, torch_device) -> "TerminalSystems":
+        """Reads the systems written by :meth:`to_hdf5` or by the JAX
+        package, with their tensors on ``torch_device``."""
+        def load(grp):
+            return LinearSystem.from_hdf5(grp, torch_device)
+
+        rest = None
+        if "film_without_boundary_or_holes" in h5group:
+            rest = load(h5group["film_without_boundary_or_holes"])
+        return TerminalSystems(
+            film=str(h5group.attrs["film"]),
+            boundary=load(h5group["boundary"]),
+            holes={name: load(grp) for name, grp in h5group["holes"].items()},
+            film_without_boundary=load(h5group["film_without_boundary"]),
+            film_without_boundary_or_holes=rest,
+        )
+
+
+def permutation_to_pivots(perm: np.ndarray) -> np.ndarray:
+    """The 0-based LAPACK pivots (row ``i`` swapped with row ``piv[i]``, in
+    sequence) of the row permutation ``perm``; the inverse of
+    :func:`pivots_to_permutation`.  The pivots with ``piv[i] >= i`` that
+    produce a permutation are unique, so these are the ones
+    ``lu_factor`` returned."""
+    perm = np.asarray(perm, dtype=np.int64)
+    rows = np.arange(len(perm))  # rows[k]: the original row now at k
+    where = np.arange(len(perm))  # where[r]: the position of original row r
+    piv = np.empty(len(perm), dtype=np.int32)
+    for i, target in enumerate(perm):
+        j = where[target]
+        piv[i] = j
+        rows[i], rows[j] = rows[j], rows[i]
+        where[rows[i]], where[rows[j]] = i, j
+    return piv
+
+
+def pivots_to_permutation(piv: np.ndarray) -> np.ndarray:
+    """The row permutation ``perm`` (``M[perm] = L U``) of 0-based LAPACK
+    pivots, as :func:`superscreen_tpu_torch.ops.linalg.factor_system`
+    keeps it."""
+    perm = np.arange(len(piv))
+    for i, j in enumerate(np.asarray(piv, dtype=np.int64)):
+        perm[i], perm[j] = perm[j], perm[i]
+    return perm
 
 
 def _build_system_1d(Q, weights, Lambda, laplacian, ix, grad_Lambda_term=None):

@@ -20,6 +20,7 @@ import torch
 
 from ..device import Device, Polygon
 from ..geometry import path_vectors
+from ..io import new_group
 from ..ops.fem import COO
 from ..parameter import Constant
 from ..solution import Vortex
@@ -74,6 +75,9 @@ class LambdaInfo:
     thickness: Optional[float] = None
     inhomogeneous: bool = field(init=False)
 
+    lambda_str = "λ"
+    Lambda_str = "Λ"
+
     def __post_init__(self):
         lam = np.asarray(self.Lambda)
         if (lam < 0).any():
@@ -85,6 +89,45 @@ class LambdaInfo:
                 f"Inhomogeneous Lambda in film {self.film!r}, which violates "
                 "the assumptions of the London model. Results may not be reliable."
             )
+
+    def to_hdf5(self, h5group) -> None:
+        """Writes the depth into ``h5group`` (an ``h5py.Group``)."""
+        h5group.attrs["film"] = self.film
+        h5group["Lambda"] = self.Lambda
+        if self.thickness is not None:
+            h5group.attrs["thickness"] = self.thickness
+        if self.london_lambda is not None:
+            h5group["london_lambda"] = self.london_lambda
+
+    @staticmethod
+    def from_hdf5(h5group) -> "LambdaInfo":
+        """Reads a depth written by :meth:`to_hdf5` (or by the JAX package)."""
+        return LambdaInfo(
+            film=h5group.attrs["film"],
+            Lambda=np.array(h5group["Lambda"]),
+            london_lambda=(
+                np.array(h5group["london_lambda"]) if "london_lambda" in h5group else None
+            ),
+            thickness=h5group.attrs.get("thickness", None),
+        )
+
+
+def _coo_to_group(h5group, op: COO) -> None:
+    """Stores a COO operator as three triplet datasets plus a shape
+    attribute (the JAX package's layout)."""
+    for part in ("rows", "cols", "vals"):
+        h5group[part] = getattr(op, part)
+    h5group.attrs["shape"] = op.shape
+
+
+def _coo_from_group(h5group) -> COO:
+    rows, cols, vals = (np.array(h5group[p]) for p in ("rows", "cols", "vals"))
+    return COO(rows=rows, cols=cols, vals=vals, shape=tuple(int(k) for k in h5group.attrs["shape"]))
+
+
+def _host(value) -> np.ndarray:
+    """A tensor or array as a host NumPy array."""
+    return value.cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 @dataclass
@@ -139,6 +182,80 @@ class FilmInfo:
     gradient: Optional[torch.Tensor] = None
     gradient_coo: Optional[Tuple[COO, COO]] = None
     terminal_currents: Optional[Dict[str, float]] = None
+
+    def to_hdf5(self, h5group) -> None:
+        """Writes the film info into ``h5group`` (an ``h5py.Group``) in the
+        JAX package's layout; the tensors come to the host here.  A dense
+        film's ``Q`` and Laplacian are released once its systems are
+        factorized, so a factorized model's info holds neither: the
+        ``dense_kernel`` attribute records the path, and
+        :meth:`from_hdf5` rebuilds ``Q`` on the torch device."""
+        h5group.attrs.update(name=self.name, layer=self.layer, dense_kernel=self.dense_kernel)
+        self.lambda_info.to_hdf5(new_group(h5group, "lambda_info"))
+        vortex_grp = new_group(h5group, "vortices")
+        for i, vortex in enumerate(self.vortices):
+            vortex.to_hdf5(new_group(vortex_grp, str(i)))
+        for key in ("interior_indices", "boundary_indices", "in_hole", "weights", "sites"):
+            h5group[key] = _host(getattr(self, key))
+        for key in ("kernel", "gradient"):
+            value = getattr(self, key)
+            if value is not None:
+                h5group[key] = _host(value)
+        holes = new_group(h5group, "hole_indices")
+        for hole, indices in self.hole_indices.items():
+            holes[hole] = indices
+        new_group(h5group, "circulating_currents").attrs.update(self.circulating_currents)
+        if self.terminal_currents is not None:
+            new_group(h5group, "terminal_currents").attrs.update(self.terminal_currents)
+        if isinstance(self.laplacian, COO):
+            _coo_to_group(new_group(h5group, "laplacian_coo"), self.laplacian)
+        elif self.laplacian is not None:
+            h5group["laplacian"] = _host(self.laplacian)
+        if self.gradient_coo is not None:
+            for axis, op in zip("xy", self.gradient_coo):
+                _coo_to_group(new_group(h5group, f"gradient_coo_{axis}"), op)
+
+    @staticmethod
+    def from_hdf5(h5group, torch_device) -> "FilmInfo":
+        """Reads a film info written by :meth:`to_hdf5` or by the JAX
+        package, with its tensors on ``torch_device``.  A dense Laplacian
+        or gradient in the file (the JAX package keeps them) is not loaded:
+        the factorized systems already hold it."""
+        def tensor(key):
+            return torch.as_tensor(np.array(h5group[key]), device=torch_device)
+
+        dense_kernel = bool(h5group.attrs.get("dense_kernel", "kernel" in h5group))
+        laplacian = None
+        if "laplacian_coo" in h5group:
+            laplacian = _coo_from_group(h5group["laplacian_coo"])
+        gradient_coo = None
+        if "gradient_coo_x" in h5group:
+            gradient_coo = tuple(
+                _coo_from_group(h5group[f"gradient_coo_{axis}"]) for axis in "xy"
+            )
+        vortex_grp = h5group["vortices"]
+        return FilmInfo(
+            name=str(h5group.attrs["name"]),
+            layer=str(h5group.attrs["layer"]),
+            lambda_info=LambdaInfo.from_hdf5(h5group["lambda_info"]),
+            vortices=tuple(Vortex.from_hdf5(vortex_grp[i]) for i in sorted(vortex_grp, key=int)),
+            interior_indices=np.array(h5group["interior_indices"]),
+            boundary_indices=np.array(h5group["boundary_indices"]),
+            hole_indices={hole: np.array(ix) for hole, ix in h5group["hole_indices"].items()},
+            in_hole=np.array(h5group["in_hole"]),
+            circulating_currents=dict(h5group["circulating_currents"].attrs),
+            terminal_currents=(
+                dict(h5group["terminal_currents"].attrs)
+                if "terminal_currents" in h5group
+                else None
+            ),
+            weights=tensor("weights"),
+            kernel=tensor("kernel") if "kernel" in h5group else None,
+            laplacian=laplacian,
+            sites=np.array(h5group["sites"]),
+            dense_kernel=dense_kernel,
+            gradient_coo=gradient_coo,
+        )
 
 
 def get_holes_and_vortices_by_film(

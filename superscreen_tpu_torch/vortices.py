@@ -31,6 +31,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .io import new_group
 from .solution import Solution, Vortex
 from .units import ureg as _global_ureg
 
@@ -124,9 +125,8 @@ class VortexLandscape:
         return nPhi0**2 * self.self_energy + nPhi0 * self.interaction
 
     def to_hdf5(self, h5group) -> None:
-        """Saves the landscape's arrays into ``h5group`` (an ``h5py.Group``).
-        The background :class:`Solution` is not written: the port's
-        ``Solution`` has no HDF5 form yet."""
+        """Saves the landscape, its background :class:`Solution` included,
+        into ``h5group`` (an ``h5py.Group``), in the JAX package's layout."""
         h5group.attrs["film"] = self.film
         h5group.attrs["units"] = self.units
         h5group["indices"] = np.asarray(self.indices)
@@ -136,11 +136,17 @@ class VortexLandscape:
         holes = h5group.create_group("hole_indices")
         for name, idx in self.hole_indices.items():
             holes[name] = np.asarray(idx)
+        self.background.to_hdf5(new_group(h5group, "background"))
 
     @classmethod
-    def from_hdf5(cls, h5group, background: Solution) -> "VortexLandscape":
-        """Reads a landscape written by :meth:`to_hdf5`, around the given
-        background solution."""
+    def from_hdf5(
+        cls, h5group, background: Optional[Solution] = None, torch_device="cuda"
+    ) -> "VortexLandscape":
+        """Reads a landscape written by :meth:`to_hdf5` (or by the JAX
+        package).  Its background is the file's, post-processed on
+        ``torch_device``, unless ``background`` is given."""
+        if background is None:
+            background = Solution.from_hdf5(h5group["background"], torch_device=torch_device)
         return cls(
             film=h5group.attrs["film"],
             indices=np.asarray(h5group["indices"]),
@@ -155,10 +161,10 @@ class VortexLandscape:
     def plot(self, nPhi0: float = 1.0, ax=None, cmap="viridis", **kwargs):
         """Tripcolor plot of the total probe energy over the film; returns
         ``(fig, ax)``."""
-        import matplotlib.pyplot as plt
+        from .io import require
 
         if ax is None:
-            fig, ax = plt.subplots(constrained_layout=True)
+            fig, ax = require("matplotlib.pyplot").subplots(constrained_layout=True)
         else:
             fig = ax.get_figure()
         mesh = self.background.device.meshes[self.film]

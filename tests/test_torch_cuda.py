@@ -826,3 +826,82 @@ def test_adjoint_backward_on_the_card_is_reproducible_and_matches_cpu(cuda, dtyp
         grads.append(grad.cpu())
     assert torch.equal(grads[0], grads[1])
     assert _rel_err(grads[0].double(), grads[2]) <= (1e-3 if dtype == "float32" else 1e-10)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_public_q_matrix_and_mesh_operators_run_the_kernel(cuda, dtype):
+    """``distance.q_matrix`` and ``MeshOperators.Q_matrix`` on the card are
+    the ``q_matrix`` kernel's route, bit for bit, and within 1e-6 of the
+    plain versions."""
+    device = _two_films(3000, "float32")
+    mesh = device.meshes["big"]
+    sites = torch.as_tensor(mesh.sites.astype(dtype), device=cuda)
+    weights = torch.as_tensor(mesh.vertex_areas.astype(dtype), device=cuda)
+    before = cuda_kernels.LAUNCHES["q_matrix"]
+    q = st.distance.q_matrix(mesh.sites, dtype=dtype, torch_device="cuda")
+    assert cuda_kernels.LAUNCHES["q_matrix"] == before + 1
+    assert q.dtype == dtype
+    assert np.array_equal(q, kernels.q_matrix(sites).cpu().numpy())
+    assert _rel_err(torch.from_numpy(q), kernels.q_matrix_plain(sites.cpu())) <= 1e-6
+    Q = st.MeshOperators.Q_matrix(mesh.sites.astype(dtype), mesh.vertex_areas.astype(dtype))
+    assert np.array_equal(Q, kernels.Q_matrix(sites, weights).cpu().numpy())
+    plain = kernels.Q_matrix(sites.cpu(), weights.cpu())
+    assert _rel_err(torch.from_numpy(Q), plain) <= 1e-6
+
+
+def test_translate_and_mirror_on_the_card(cuda, tmp_path, monkeypatch):
+    """The float32 streams of a translated device (which keeps its mesh)
+    within 1e-4 of the original's; a mirrored device meshed through the
+    mesh cache (a hit) within 1e-6: the coupling depends on dz^2 only."""
+    monkeypatch.setenv("SUPERSCREEN_TPU_MESH_CACHE", str(tmp_path))
+    device = _two_films(3000, "float32")
+    kwargs = dict(applied_field=st.sources.ConstantField(0.5),
+                  circulating_currents={"big_hole": "2 uA"}, iterations=3, coupling="exact",
+                  progress_bar=False)
+    ref = st.solve(device, **kwargs)[-1]
+
+    def err(solution):
+        return max(
+            float(np.abs(solution.film_solutions[k].stream - fs.stream).max()
+                  / np.abs(fs.stream).max())
+            for k, fs in ref.film_solutions.items()
+        )
+
+    assert err(st.solve(device.translate(3.0, -2.0), **kwargs)[-1]) <= 1e-4
+    entries = sorted(tmp_path.iterdir())
+    assert len(entries) == 2
+    mirrored = device.mirror_layers()
+    mirrored.make_mesh(min_points=3000)
+    assert sorted(tmp_path.iterdir()) == entries
+    for name, mesh in device.meshes.items():
+        assert np.array_equal(mirrored.meshes[name].sites, mesh.sites)
+    assert err(st.solve(mirrored, **kwargs)[-1]) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_public_cdist_and_C_vector_compute_on_the_card(cuda, dtype):
+    """``distance.cdist`` and ``MeshOperators.C_vector`` compute on the card
+    by default (NumPy in and out) and agree with their CPU results (1e-12
+    in float64, 1e-6 in float32, relative to the largest distance and to
+    each entry of C)."""
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    rng = np.random.default_rng(5)
+    for dim in (2, 3):
+        XA, XB = rng.normal(size=(700, dim)).astype(dtype), rng.normal(size=(300, dim)).astype(dtype)
+        for metric in ("euclidean", "sqeuclidean"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = st.distance.cdist(XA, XB, metric=metric)
+            assert torch.cuda.max_memory_allocated() >= got.nbytes
+            want = st.distance.cdist(XA, XB, metric=metric, torch_device="cpu")
+            assert got.dtype == want.dtype == dtype
+            assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    # C diverges where x - mean(x) = +-a, at sites that a rounding of the
+    # centroid moves, so the points lie on a dyadic grid and number 2^12:
+    # the centroid is then exact in any summation order, and C is held
+    # entry by entry.
+    sites = (rng.integers(-400, 400, (4096, 2)) / 8).astype(dtype)
+    got = st.MeshOperators.C_vector(sites)
+    want = st.MeshOperators.C_vector(sites, torch_device="cpu")
+    assert got.dtype == want.dtype == dtype
+    assert np.all(np.abs(got - want) <= tol * np.abs(want))

@@ -2,6 +2,7 @@
 on the same device and mesh (through ``device_from_reference``), at
 float64 on the CPU, plus the port's own contracts."""
 
+import io
 import os
 import subprocess
 import sys
@@ -189,14 +190,32 @@ def test_cuda_without_a_card_raises():
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
         (lambda d: st.solve(d, check_inversion=True), RuntimeError),
         (lambda d: st.solve(d, high_precision=True), RuntimeError),
-        (lambda d: st.solve(d, save_path="out.h5", torch_device="cpu"), NotImplementedError),
-        (lambda d: st.solve(d, return_solutions=False, torch_device="cpu"), NotImplementedError),
+        (lambda d: _load_reference_system("chol"), NotImplementedError),
+        (lambda d: _load_reference_system("cg"), NotImplementedError),
     ],
 )
 def test_unsupported_options_raise(call, error):
     ref, _ = _quickstart()
     with pytest.raises(error):
         call(st.device_from_reference(ref))
+
+
+def _load_reference_system(tag):
+    """Reads a film system that the JAX package factorized by ``tag``
+    (``"chol"``, ``"inv"`` or ``"cg"``), which the port does not build: an
+    in-memory HDF5 group in the JAX package's layout."""
+    h5py = pytest.importorskip("h5py")
+    key = {"chol": "chol_L", "inv": "inv_M", "cg": "cg_sub_sites"}[tag]
+    with h5py.File(io.BytesIO(), "w") as f:
+        f["indices"] = np.arange(3)
+        f[key] = np.eye(3)
+        st.solver.solve_film.LinearSystem.from_hdf5(f, "cpu")
+
+
+@pytest.mark.parametrize("tag", ["chol", "inv", "cg"])
+def test_unported_film_systems_name_their_tag(tag):
+    with pytest.raises(NotImplementedError, match=repr(tag)):
+        _load_reference_system(tag)
 
 
 @pytest.mark.parametrize(
@@ -206,10 +225,24 @@ def test_unsupported_options_raise(call, error):
         (dict(return_solutions=False), "ROADMAP item 9"),
     ],
 )
-def test_unported_solve_arguments_name_their_roadmap_item(kwargs, item):
-    ref, _ = _quickstart()
-    with pytest.raises(NotImplementedError, match=item):
-        st.solve(st.device_from_reference(ref), torch_device="cpu", **kwargs)
+def test_unported_solve_arguments_name_their_roadmap_item(kwargs, item, tmp_path):
+    """The arguments that waited for ``item`` (host conveniences) are
+    ported, and the test keeps the name it had while they raised:
+    ``save_path`` writes the Solutions that ``solve`` returns, and
+    ``return_solutions=False`` returns None."""
+    pytest.importorskip("h5py")
+    ref, quick = _quickstart()
+    device = st.device_from_reference(ref)
+    if "save_path" in kwargs:
+        kwargs = dict(save_path=str(tmp_path / kwargs["save_path"]))
+    out = st.solve(device, torch_device="cpu", **kwargs, **quick)
+    if kwargs.get("return_solutions", True):
+        loaded = st.Solution.load_solutions(kwargs["save_path"], torch_device="cpu")
+        assert len(loaded) == len(out)
+        for a, b in zip(out, loaded):
+            assert a.equals(b)
+    else:
+        assert out is None
 
 
 def test_solve_accepts_every_argument_of_the_reference_at_its_default():
