@@ -71,7 +71,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    float64), the fluxoids of the four holes, the mutual-inductance matrix
    in float32 and in float64 on the card (within 1e-3 of each other), and
    ``find_fluxoid_solution`` with one flux quantum in the outer ring's
-   hole (targets met within 1e-3 Phi_0).
+   hole (targets met within 1e-3 Phi_0).  A warm hole fluxoid and the
+   float32 matrix are timed again on the plain route of the ring test
+   (SUPERSCREEN_TPU_NATIVE=0; the matrix within 1e-6 of the core's).
 10. Float64 certification and polish on phase 4's model and phase 7's
    sweep: ``certify_sweep`` (the float64 residual per film and point; the
    device's residual against NumPy's on 512 sampled rows within 1e-12;
@@ -155,8 +157,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    round trip of the rotated model (bitwise-equal streams) and of one
    solution (the card's machine has dill but no h5py: the phase says so on
    one line).
+16. The geometry core and ``solve_film``: the core compiled once more from
+   its source (the compiler's ``--version`` and the seconds printed);
+   phase 2's stack re-meshed by the core (bit for bit phase 2's meshes;
+   timed, and under cProfile with its five most expensive entries) and
+   by the plain routes with SUPERSCREEN_TPU_NATIVE=0 (the same sites and
+   triangle sets); the core's ring test on 10^6 points around a
+   20,000-vertex outline against the NumPy loop, bit for bit on the first
+   20,000 points and on every vertex and edge point, both timed;
+   ``make_mesh(min_angle=30, extra_points=...)`` through the mesh cache
+   (a miss, then a hit with identical arrays) and ``fem.in_polygon(...,
+   radius=0.01)``; then ``solver.solve_film.solve_film`` against the last
+   round of a ``solve()`` of the same drive, fed that round's field from
+   the other films: every film of phase 2's stack with its dense kernel,
+   the terminal strip of phase 8 with a hole current and two vortices
+   (its self-field through biot_savart_batch), one low-memory film of
+   phase 4's stack (through q_apply), all within 1e-5 of max|.| in stream
+   and self-field; one call with ``check_inversion=True`` (its warnings
+   printed); and one with ``hp_system`` against a float64 ``solve()`` on
+   the card within 1e-8.  Launches and CUDA-event milliseconds per call;
+   phase 9's post-processing times on both ring-test routes.
 
-Phases 2-11 and 15 hold ``coupling="auto"`` to the exact pairwise coupling
+Phases 2-11, 15 and 16 hold ``coupling="auto"`` to the exact pairwise coupling
 (SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
 exact coupling kernels, which the card's cost model may trade for the FFT
 transfer at their sizes.  Phase 12 drives the FFT coupling.
@@ -315,6 +337,14 @@ ADJ_SCAN_MAX = {"float32": 1e-4, "float64": 1e-8}
 ADAM_STEPS = 5
 ADAM_LR = 5e-2
 ADAM_GUESS = 0.5
+# Phase 16: the ring test on a 20,000-vertex outline at 10^6 points (the
+# NumPy loop on the first 20,000 of them and on every point of the
+# outline: it takes ~6 ns per point and edge), and solve_film against
+# solve()'s last round (float32, relative to max|.| of each quantity).
+RING_TEST_VERTICES = 20000
+RING_TEST_POINTS = 1000000
+RING_TEST_PLAIN_POINTS = 20000
+SOLVE_FILM_REL_MAX = 1e-5
 
 # Peak rates of an H100 SXM at its 700 W limit (132 SMs at 1.98 GHz;
 # NVIDIA's data sheet): HBM bytes, FP32 and FP64 operations outside the
@@ -811,8 +841,13 @@ def phase_solve(torch, st, cuda_kernels, device):
         _require(data.Qw.shape == (sizes[name], sizes[name]), "film not on the dense path")
     _require(launches["q_matrix"] >= len(device.films), launches)
     _require(launches["biot_savart_batch"] >= 12 * ITERATIONS, launches)
-    # Every round of solve() refines: three residuals per film and round.
-    _require(launches["residual_f64"] == 3 * len(device.films) * (ITERATIONS + 1), launches)
+    # Every round of solve() refines: three residuals per film and round;
+    # and each film's self-field over the six rounds is one float64-summed
+    # product.
+    _require(
+        launches["residual_f64"] == 3 * len(device.films) * (ITERATIONS + 1) + len(device.films),
+        launches,
+    )
     _check_residuals(torch, model, solutions[-1], "phase2")
     streams = {name: fs.stream for name, fs in solutions[-1].film_solutions.items()}
     return launches, streams, solutions[-1]
@@ -1347,7 +1382,7 @@ def _time_within_film(torch, kernels, cuda_kernels, data, B):
 
 def phase_transport(torch, st, kernels, cuda_kernels):
     """Vortices, terminals and a position-dependent Lambda at real size;
-    returns the launch counts of the sweep."""
+    returns the launch counts of the sweep and the meshed device."""
     from superscreen_tpu_torch import sweep as sweep_module
     from superscreen_tpu_torch.solver.utils import MAX_DENSE_KERNEL_SIZE
 
@@ -1430,7 +1465,7 @@ def phase_transport(torch, st, kernels, cuda_kernels):
         _transport_comparisons(
             torch, st, cuda_kernels, factorize, sweep_kwargs, device, coarse, model, result
         )
-    return launches
+    return launches, device
 
 
 def _transport_comparisons(
@@ -1552,7 +1587,9 @@ def _rel_to_max(a, b):
 def phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions):
     """Post-processing at full width on phase 4's model (the uncut
     27,000-site stack, float32) and its solutions; returns the launch counts
-    of the field map."""
+    of the field map and the warm times of a hole fluxoid and of the
+    float32 mutual-inductance matrix, with the geometry core's ring test
+    and on the plain route (SUPERSCREEN_TPU_NATIVE=0)."""
     device = model.device
     solution = lu_solutions[-1]
     films = list(device.films)
@@ -1705,17 +1742,45 @@ def phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions):
     )
     _require(worst_linear <= FLUXOID_TOL, f"fluxoid linearity {worst_linear:.3e}")
     _require(worst_cpu <= SITE_VALUE_TOL, f"fluxoid card against CPU {worst_cpu:.3e}")
+    # One warm hole fluxoid with the core's ring test and on the plain
+    # route, in turns.
+    post_times = {"fluxoid": [], "fluxoid_plain": []}
+    for key in ("fluxoid", "fluxoid_plain", "fluxoid_plain", "fluxoid"):
+        with _environ(SUPERSCREEN_TPU_NATIVE="0" if key == "fluxoid_plain" else "1"):
+            post_times[key].append(_wall(torch, lambda: strong.hole_fluxoid(holes[0]))[1])
+    post_times = {key: min(values) for key, values in post_times.items()}
+    print(
+        f"phase9 warm hole fluxoid ({holes[0]}): {post_times['fluxoid']:.3f} s with the geometry "
+        f"core, {post_times['fluxoid_plain']:.3f} s on the plain route (best of two, in turns)"
+    )
     _profile(
         torch, lambda: _wall(torch, lambda: strong.hole_fluxoid(holes[0]))[1],
         "phase9 profile of one hole fluxoid",
     )
     del swept, weak, strong, on_cpu
 
-    # 5. The mutual-inductance matrix in float32 and in float64 on the card.
+    # 5. The mutual-inductance matrix in float32 and in float64 on the card,
+    # and in float32 on the plain route of the ring test.
     matrices = {}
-    for dtype in ("float32", "float64"):
+    for dtype in ("float32", "plain", "float64"):
         dev = device.copy()
-        dev.solve_dtype = dtype
+        dev.solve_dtype = "float32" if dtype == "plain" else dtype
+        if dtype == "plain":
+            torch.cuda.empty_cache()
+            with _environ(SUPERSCREEN_TPU_NATIVE="0"):
+                M, post_times["mutual_plain"] = _wall(
+                    torch,
+                    lambda: dev.mutual_inductance_matrix(iterations=ITERATIONS, torch_device=CARD),
+                )
+            M = np.asarray(M.magnitude)
+            err = _rel_to_max(M, matrices["float32"])
+            print(
+                f"phase9 mutual_inductance_matrix float32 on the plain route (SUPERSCREEN_TPU_"
+                f"NATIVE=0): {post_times['mutual_plain']:.3f} s; against the core's "
+                f"{err:.3e} of max|M| (limit 1e-6), bitwise equal {np.array_equal(M, matrices['float32'])}"
+            )
+            _require(err <= 1e-6, f"the plain ring test changed the mutual inductances {err:.3e}")
+            continue
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(cuda_kernels)
@@ -1724,6 +1789,8 @@ def phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions):
         )
         M = np.asarray(M.magnitude)
         matrices[dtype] = M
+        if dtype == "float32":
+            post_times["mutual"] = mutual_s
         asym = float(np.abs(M - M.T).max() / np.abs(M).max())
         print(
             f"phase9 mutual_inductance_matrix(iterations={ITERATIONS}) in {dtype}: {mutual_s:.3f} s "
@@ -1761,7 +1828,7 @@ def phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions):
         f"Phi_0, largest deviation {worst:.3e} (limit {FLUXOID_TOL:.0e})"
     )
     _require(worst <= FLUXOID_TOL, f"fluxoid targets missed by {worst:.3e} Phi_0")
-    return launches
+    return launches, post_times
 
 
 def _certify_inputs(model, result, film_data=None, circulating=None):
@@ -3192,6 +3259,326 @@ def phase_transforms(torch, st, kernels, cuda_kernels, device, reference):
     return transform_launches
 
 
+def _cold_native_build(native):
+    """Compiles the geometry core from its source once more, into a file
+    of its own (the process loaded its library at first use, when phase 2
+    meshed); returns the compiler's first ``--version`` line and the build
+    seconds."""
+    cxx = native.compiler()
+    version = subprocess.run(
+        [cxx, "--version"], capture_output=True, text=True, check=True
+    ).stdout.splitlines()[0]
+    target = native._BUILD_DIR / f"libgeomcore_cold_{os.getpid()}.so"
+    t0 = time.perf_counter()
+    native._build(cxx, target)
+    seconds = time.perf_counter() - t0
+    target.unlink()
+    return version, seconds
+
+
+def _mesh_rows(elements):
+    return set(map(tuple, np.sort(elements, axis=1).tolist()))
+
+
+def _remesh_profiled(device):
+    """Re-meshes a copy of ``device`` as phase 2 meshed it, under cProfile;
+    returns the copy, the profiled wall seconds and the five entries with
+    the most time of their own."""
+    import cProfile
+    import pstats
+
+    fresh = device.copy(with_mesh=False)
+    profiler = cProfile.Profile()
+    profiler.enable()
+    seconds = _remesh_timed(fresh)
+    profiler.disable()
+    stats = pstats.Stats(profiler)
+    top = sorted(stats.stats.items(), key=lambda item: -item[1][2])[:5]
+    lines = [
+        f"{tottime:8.3f} s own {cumtime:8.3f} s cumulative x{ncalls:<7d} "
+        f"{os.path.basename(path)}:{line} {func}"
+        for (path, line, func), (_, ncalls, tottime, cumtime, _) in top
+    ]
+    return fresh, seconds, lines
+
+
+def _ring_test_inputs(n_vertices, n_points):
+    """A closed wavy outline of ``n_vertices`` vertices and ``n_points``
+    query points around it, plus every vertex and a point at a dyadic
+    fraction of every edge (points on the outline)."""
+    rng = np.random.default_rng(16)
+    t = np.linspace(0, 2 * np.pi, n_vertices, endpoint=False)
+    r = 3.0 + 0.3 * np.sin(7 * t)
+    ring = np.stack([r * np.cos(t), r * np.sin(t)], axis=1)
+    ring = np.concatenate([ring, ring[:1]])
+    frac = rng.integers(1, 8, size=(n_vertices, 1)) / 8
+    on_outline = np.concatenate([ring[:-1], ring[:-1] + frac * (ring[1:] - ring[:-1])])
+    queries = np.concatenate([rng.uniform(-3.5, 3.5, (n_points, 2)), on_outline])
+    return ring, queries, len(on_outline)
+
+
+def _solve_film_call(torch, st, cuda_kernels, label, device, model, solution, name,
+                     film_info=None, **extra):
+    """``solve_film`` for film ``name`` of ``model`` with the applied field
+    and the field from the other films of ``solution``'s film (in solver
+    units), its launches (counts set to 0 just before) and its CUDA-event
+    milliseconds; returns the film solution, the launches and the ms."""
+    import importlib
+
+    from superscreen_tpu_torch.solver.utils import field_conversion_factor
+    from superscreen_tpu_torch.sweep import vortex_flux_quantum
+
+    solve_film = importlib.import_module("superscreen_tpu_torch.solver.solve_film").solve_film
+    conv = field_conversion_factor(
+        "mT", model.current_units, length_units=device.length_units, ureg=device.ureg
+    ).magnitude
+    fs = solution.film_solutions[name]
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _reset_launches(cuda_kernels)
+    start.record()
+    out = solve_film(
+        device=device,
+        applied_field=fs.applied_field * conv,
+        film_info=model.film_info[name] if film_info is None else film_info,
+        film_system=model.film_systems[name],
+        hole_systems=model.hole_systems[name],
+        field_conversion=conv,
+        vortex_flux=vortex_flux_quantum(device, model.current_units),
+        terminal_systems=model.terminal_systems.get(name),
+        field_from_other_films=fs.field_from_other_films * conv,
+        **extra,
+    )
+    stop.record()
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    ms = start.elapsed_time(stop)
+    print(f"{label} solve_film({name!r}) launches {launches} ms={ms:.2f} (CUDA events)")
+    for arr in (out.stream, out.current_density, out.self_field):
+        _require(np.all(np.isfinite(arr)), f"{label} {name}: non-finite solve_film output")
+    return out, launches, ms
+
+
+def _check_film(label, name, out, fs, limit):
+    """Stream and self-field of ``out`` against the film solution ``fs``,
+    relative to each one's max|.|; both at most ``limit``."""
+    errors = {
+        quantity: float(
+            np.abs(getattr(out, quantity).astype(np.float64) - getattr(fs, quantity)).max()
+            / np.abs(getattr(fs, quantity)).max()
+        )
+        for quantity in ("stream", "self_field")
+    }
+    print(f"{label} {name}: against solve()'s last round {errors} (limit {limit:.0e})")
+    _require(max(errors.values()) <= limit, f"{label} {name}: solve_film {errors}")
+
+
+def phase_native_solve_film(torch, st, cuda_kernels, device, large, transport, post_times):
+    """Phase 16: the geometry core and ``solve_film`` on the card's machine
+    (see the module docstring)."""
+    import logging
+    import shutil
+    import tempfile
+
+    from superscreen_tpu_torch import native
+    from superscreen_tpu_torch.device.polygon import points_in_ring_plain
+    from superscreen_tpu_torch.solver import refine
+    from superscreen_tpu_torch.solver.utils import make_film_info
+
+    # 1. The build.
+    version, cold_s = _cold_native_build(native)
+    print(
+        f"phase16 geometry core: compiler {native.compiler()} ({version}); first-use build "
+        f"{native.STATS['build_seconds']} s, cold rebuild {cold_s:.3f} s"
+    )
+
+    # 2. Phase 2's stack re-meshed by the core (profiled) and by the plain
+    # routes; both give phase 2's meshes.
+    fresh, native_s, top = _remesh_profiled(device)
+    unprofiled = device.copy(with_mesh=False)
+    native_plain_s = _remesh_timed(unprofiled)
+    with _environ(SUPERSCREEN_TPU_NATIVE="0"):
+        plain = device.copy(with_mesh=False)
+        plain_s = _remesh_timed(plain)
+    same_native = all(
+        np.array_equal(m.meshes[k].sites, device.meshes[k].sites)
+        and np.array_equal(m.meshes[k].elements, device.meshes[k].elements)
+        for m in (fresh, unprofiled) for k in device.films
+    )
+    same_plain = all(
+        np.array_equal(plain.meshes[k].sites, device.meshes[k].sites)
+        and _mesh_rows(plain.meshes[k].elements) == _mesh_rows(device.meshes[k].elements)
+        for k in device.films
+    )
+    print(
+        f"phase16 re-mesh of phase 2's stack ({sum(len(m.sites) for m in device.meshes.values())} "
+        f"sites): geometry core {native_plain_s:.3f} s ({native_s:.3f} s under cProfile), "
+        f"plain routes (SUPERSCREEN_TPU_NATIVE=0) {plain_s:.3f} s; core meshes equal phase 2's "
+        f"bit for bit {same_native}; plain meshes the same sites and triangle sets {same_plain}; "
+        f"Delaunay fallbacks {native.STATS['delaunay_fallbacks']}"
+    )
+    for line in top:
+        print(f"phase16 cProfile (core re-mesh) {line}")
+    _require(same_native and same_plain, "re-meshed stacks differ from phase 2's")
+    del fresh, unprofiled, plain
+
+    # 3. The ring test, bit for bit against the NumPy loop.
+    ring, queries, n_outline = _ring_test_inputs(RING_TEST_VERTICES, RING_TEST_POINTS)
+    got, core_s = _wall(torch, lambda: native.points_in_ring(ring, queries))
+    subset = np.concatenate([queries[:RING_TEST_PLAIN_POINTS], queries[-n_outline:]])
+    want, plain_s = _wall(torch, lambda: points_in_ring_plain(ring, subset))
+    same = np.array_equal(np.concatenate([got[:RING_TEST_PLAIN_POINTS], got[-n_outline:]]), want)
+    print(
+        f"phase16 points_in_ring, {RING_TEST_VERTICES}-vertex outline: core {len(queries)} points "
+        f"in {core_s * 1e3:.1f} ms ({core_s / len(queries) * 1e9:.1f} ns per point); plain "
+        f"{len(subset)} of them (every vertex and edge point among them) in {plain_s:.3f} s "
+        f"({plain_s / len(subset) * 1e9:.0f} ns per point); bitwise equal {same}; "
+        f"{int(got.sum())} inside"
+    )
+    _require(same, "points_in_ring differs from points_in_ring_plain")
+
+    # 4. The arguments of fault 3.13, through the mesh cache.
+    cache = tempfile.mkdtemp(prefix="mesh_cache_")
+    try:
+        with _environ(SUPERSCREEN_TPU_MESH_CACHE=cache):
+            t = np.linspace(0, 2 * np.pi, 60, endpoint=False)
+            disk_points = np.stack([2 * np.cos(t), 2 * np.sin(t)], axis=1)
+            disks = [
+                st.Device("disk", layers=[st.Layer("base", Lambda=0.1)],
+                          films=[st.Polygon("disk", layer="base", points=disk_points)])
+                for _ in range(2)
+            ]
+            kwargs = dict(max_edge_length=0.4, min_angle=30, extra_points=[[0.1, 0.2]])
+            miss_s = _wall(torch, lambda: disks[0].make_mesh(**kwargs))[1]
+            stored = sorted(os.listdir(cache))
+            hit_s = _wall(torch, lambda: disks[1].make_mesh(**kwargs))[1]
+            hit = sorted(os.listdir(cache)) == stored and np.array_equal(
+                disks[0].meshes["disk"].elements, disks[1].meshes["disk"].elements
+            )
+        inside = st.fem.in_polygon(disk_points, [[2, 0]], radius=0.01)
+        print(
+            f"phase16 make_mesh({kwargs}): {len(disks[0].meshes['disk'].sites)} sites, miss "
+            f"{miss_s * 1e3:.1f} ms ({len(stored)} entry), hit {hit_s * 1e3:.1f} ms, identical "
+            f"{hit}; fem.in_polygon(disk, [[2, 0]], radius=0.01) = {inside}"
+        )
+        _require(hit and len(stored) == 1 and inside is True, "fault 3.13 calls")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+    # 5. solve_film against solve()'s last round: the dense stack (each
+    # film with its dense kernel), check_inversion, hp_system against a
+    # float64 solve(), the terminal strip and a low-memory film.
+    totals = {key: 0 for key in cuda_kernels.LAUNCHES}
+
+    def count(launches):
+        for key, value in launches.items():
+            totals[key] += value
+
+    model, solutions, _ = _factorize_and_solve(torch, st, cuda_kernels, device, "phase16 dense")
+    last = solutions[-1]
+    # The dense self-field summed in float64: residual_f64 on Q diag(w)
+    # with the six rounds' streams (solve()) and with one (solve_film).
+    from superscreen_tpu_torch.ops import kernels
+
+    Qw = model.film_data["ring0"].Qw
+    n = Qw.shape[0]
+    for k in (6, 1):
+        X = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)), device=CARD)
+        zero = torch.zeros_like(X)
+        ms = _timed(torch, lambda: kernels.residual_f64(Qw, X, zero), 10)
+        print(
+            f"phase16 residual_f64 as the dense self-field, n={n} k={k}: kernel_ms={ms:.4f} "
+            f"{_bound_text(_residual_bound(n, n, k), ms)}"
+        )
+    del X, zero
+    for name in device.films:
+        info = make_film_info(
+            device=device, circulating_currents=model.circulating_currents,
+            torch_device=CARD, films=[name],
+        )[name]
+        out, launches, _ = _solve_film_call(
+            torch, st, cuda_kernels, "phase16 dense", device, model, last, name, film_info=info,
+        )
+        count(launches)
+        _require(launches["residual_f64"] >= 2, launches)
+        _check_film("phase16 dense", name, out, last.film_solutions[name], SOLVE_FILM_REL_MAX)
+        del info
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logging.getLogger("solve").addHandler(handler)
+    try:
+        _solve_film_call(
+            torch, st, cuda_kernels, "phase16 check_inversion", device, model, last, "ring0",
+            check_inversion=True,
+        )
+    finally:
+        logging.getLogger("solve").removeHandler(handler)
+    print(f"phase16 check_inversion=True: warnings {warnings}")
+    hp, hp_s = _wall(
+        torch,
+        lambda: refine.build_hp_system(device, model.film_info["ring0"], model.film_systems["ring0"]),
+    )
+    device64 = device.copy()
+    device64.solve_dtype = "float64"
+    model64, solutions64, _ = _factorize_and_solve(
+        torch, st, cuda_kernels, device64, "phase16 float64"
+    )
+    out, launches, _ = _solve_film_call(
+        torch, st, cuda_kernels, "phase16 hp_system", device, model, solutions64[-1], "ring0",
+        hp_system=hp,
+    )
+    count(launches)
+    print(f"phase16 build_hp_system('ring0'): {hp_s:.3f} s")
+    _check_film("phase16 hp_system", "ring0", out, solutions64[-1].film_solutions["ring0"],
+                HP_STREAM_REL_MAX)
+    del hp, model64, solutions64, device64, model, solutions, last
+    torch.cuda.empty_cache()
+
+    vortices = [st.Vortex(x=x, y=y, film="strip") for x, y in TRANSPORT_VORTICES]
+    model = st.factorize_model(
+        device=transport, current_units="uA", vortices=vortices,
+        terminal_currents={"strip": {"source": 4.0, "drain": -4.0}},
+        circulating_currents={"strip_hole": 1.0, "ring_hole": 2.0}, torch_device=CARD,
+    )
+    solutions = st.solve(
+        model=model, applied_field=st.sources.ConstantField(0.1),
+        iterations=TRANSPORT_ITERATIONS, torch_device=CARD,
+    )
+    out, launches, _ = _solve_film_call(
+        torch, st, cuda_kernels, "phase16 terminal", transport, model, solutions[-1], "strip",
+    )
+    count(launches)
+    _require(launches["biot_savart_batch"] >= 1, launches)
+    _check_film("phase16 terminal", "strip", out, solutions[-1].film_solutions["strip"],
+                SOLVE_FILM_REL_MAX)
+    del model, solutions
+    torch.cuda.empty_cache()
+
+    model, solutions, _ = _factorize_and_solve(torch, st, cuda_kernels, large, "phase16 low-memory")
+    _require(not model.film_info["ring0"].dense_kernel, "ring0 is not on the low-memory path")
+    out, launches, _ = _solve_film_call(
+        torch, st, cuda_kernels, "phase16 low-memory", large, model, solutions[-1], "ring0",
+    )
+    count(launches)
+    _require(launches["q_apply"] >= 1, launches)
+    _check_film("phase16 low-memory", "ring0", out, solutions[-1].film_solutions["ring0"],
+                SOLVE_FILM_REL_MAX)
+    del model, solutions
+    torch.cuda.empty_cache()
+    print(f"phase16 solve_film launches, all calls: {totals}")
+
+    # 6. Post-processing on the core's ring test (phase 9's times).
+    print(
+        "phase16 post-processing of phase 4's stack: hole fluxoid {fluxoid:.3f} s with the "
+        "geometry core, {fluxoid_plain:.3f} s on the plain route; mutual_inductance_matrix "
+        "float32 {mutual:.3f} s with the core, {mutual_plain:.3f} s on the plain route".format(
+            **post_times
+        )
+    )
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3199,6 +3586,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import superscreen_tpu_torch as st
+    from superscreen_tpu_torch import native
     from superscreen_tpu_torch.ops import cuda_kernels, kernels
 
     smi = subprocess.run(
@@ -3208,9 +3596,12 @@ def main() -> int:
     start = t0 = time.perf_counter()
     cuda_kernels.load_library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load_library()
+    native_s = time.perf_counter() - t0
     print(
         f"torch {torch.__version__} CUDA {torch.version.cuda} numpy {np.__version__}; "
-        f"kernel build {build_s:.2f} s"
+        f"kernel build {build_s:.2f} s; geometry core ({native.compiler()}) {native_s:.2f} s"
     )
     t0 = time.perf_counter()
     device = four_ring_stack(st, SITES_DENSE)
@@ -3225,14 +3616,15 @@ def main() -> int:
         model, lu_solutions, lowmem_launches = phase_lowmem(torch, st, cuda_kernels, large)
         pair_launches = phase_pair(torch, st, cuda_kernels, model, lu_solutions)
         sweep_launches, exact_sweep = phase_sweep(torch, st, cuda_kernels, model, lu_solutions)
-        map_launches = phase_postprocess(torch, st, kernels, cuda_kernels, model, lu_solutions)
+        map_launches, post_times = phase_postprocess(
+            torch, st, kernels, cuda_kernels, model, lu_solutions
+        )
         certify_launches = phase_certify(torch, st, cuda_kernels, model, large)
     fft_launches, auto_wrong = phase_fft(torch, st, cuda_kernels, model, exact_sweep)
     del model, exact_sweep
     with _exact_coupling():
         phase_cg(torch, st, cuda_kernels, large, lu_solutions)
-        del large
-        transport_launches = phase_transport(torch, st, kernels, cuda_kernels)
+        transport_launches, transport = phase_transport(torch, st, kernels, cuda_kernels)
         phase_huber(torch, st, cuda_kernels)
     scan_launches, scan_context = phase_scanning(torch, st, kernels, cuda_kernels)
     adjoint_fwd, adjoint_bwd = phase_adjoint(
@@ -3243,7 +3635,11 @@ def main() -> int:
         transform_launches = phase_transforms(
             torch, st, kernels, cuda_kernels, device, stack_solution
         )
-    del device, stack_solution
+    with _exact_coupling():
+        solve_film_launches = phase_native_solve_film(
+            torch, st, cuda_kernels, device, large, transport, post_times
+        )
+    del device, stack_solution, large, transport
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches
@@ -3260,6 +3656,10 @@ def main() -> int:
     _require(
         all(transform_launches[k] > 0 for k in ("q_matrix", "biot_savart_batch", "residual_f64")),
         transform_launches,
+    )
+    _require(
+        all(solve_film_launches[k] > 0 for k in ("biot_savart_batch", "q_apply", "residual_f64")),
+        solve_film_launches,
     )
     _require(not auto_wrong, f"coupling='auto' against the measured faster mode: {auto_wrong}")
     _require(

@@ -16,7 +16,9 @@ differentiable solve (``build_adjoint_model``, with ``torch.autograd``;
 factorized models in the JAX package's layout (``to_hdf5``/``from_hdf5``,
 ``solve(save_path=...)``), device transforms, an opt-in mesh cache shared
 with the JAX package, and plots (``visualization``): the
-same host layer (geometry, meshing, FEM operators) in NumPy, the film
+same host layer (geometry, meshing, FEM operators) in NumPy, with
+Delaunay triangulation and point-in-polygon tests in a C++ core
+(``native``, built with the host compiler at first use), the film
 systems, the self-consistent coupling and the post-processing sums in
 PyTorch, and the pairwise kernels written by hand in CUDA C++ (``csrc/``).  This package imports neither JAX nor ``superscreen_tpu``.
 """
@@ -27,7 +29,7 @@ from .adjoint import AdjointModel, build_adjoint_model
 from .convert import adjoint_params_from_reference, device_from_reference
 from .device import Device, EdgeMesh, Layer, Mesh, MeshOperators, Polygon
 from .device.mesh_generation import generate_mesh, smooth_mesh
-from . import distance, fem  # noqa: E402  (after .device: ops.fem imports it)
+from . import distance, fem
 from .parameter import CompositeParameter, Constant, Parameter
 from .fluxoid import find_fluxoid_solution, make_fluxoid_polygons
 from .solution import FilmSolution, Fluxoid, Solution, Vortex

@@ -358,6 +358,7 @@ class Device:
         max_edge_length: Union[float, Dict[str, float], None] = None,
         preserve_boundary: bool = False,
         smooth: Union[int, Dict[str, int]] = 0,
+        **mesh_kwargs,
     ) -> None:
         """Generates the triangular mesh for each film into ``self.meshes``.
 
@@ -374,6 +375,10 @@ class Device:
             preserve_boundary: Do not add vertices on the boundary (always
                 true for films with terminals).
             smooth: Laplacian smoothing iterations.
+            mesh_kwargs: Passed on to
+                :func:`superscreen_tpu_torch.device.mesh_generation.generate_mesh`
+                for every film (``min_angle``, ``extra_points``, ...), and
+                part of the mesh-cache key.
         """
         names = list(self.films)
         options = {
@@ -392,6 +397,7 @@ class Device:
                 join_style=join_style,
                 preserve_boundary=preserve_boundary,
                 **{key: per_film[name] for key, per_film in options.items()},
+                **mesh_kwargs,
             )
             for name in names
         }
@@ -407,6 +413,7 @@ class Device:
         max_edge_length,
         preserve_boundary,
         smooth,
+        **mesh_kwargs,
     ) -> Mesh:
         """Mesh a single film: optional buffered vacuum margin (never for a
         film with terminals, whose boundary is preserved), hole and
@@ -432,8 +439,8 @@ class Device:
             interior_features.insert(0, film.points)
         # Opt-in triangulation cache (SUPERSCREEN_TPU_MESH_CACHE=dir): the
         # final (post-smoothing) triangulation is keyed on the exact input
-        # geometry and meshing parameters, as in the JAX package (which
-        # also keys its extra meshing keywords: this one has none).
+        # geometry and meshing parameters, extra meshing keywords included,
+        # with the JAX package's key: the two packages share entries.
         from . import mesh_cache
 
         cache_params = dict(
@@ -441,7 +448,7 @@ class Device:
             max_edge_length=max_edge_length,
             preserve_boundary=bool(preserve_boundary or has_terminals),
             smooth=int(smooth or 0),
-            extra=repr([]),
+            extra=repr(sorted(mesh_kwargs.items())),
         )
         key = None
         if mesh_cache.cache_dir() is not None:
@@ -454,7 +461,10 @@ class Device:
             feature_rings=interior_features,
             min_points=min_points,
             max_edge_length=max_edge_length,
+            boundary=None,
+            convex_hull=False,
             preserve_boundary=preserve_boundary or has_terminals,
+            **mesh_kwargs,
         )
         if smooth:
             mesh = Mesh.from_triangulation(points, triangles, build_operators=False).smooth(smooth)

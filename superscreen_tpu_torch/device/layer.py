@@ -12,6 +12,7 @@ files hold dill-pickled, as the JAX package's do.
 import numbers
 
 from ..io import deserialize_obj, serialize_obj
+from ..parameter import Parameter  # noqa: F401  (re-exported, as by the JAX package)
 
 __all__ = ["Layer"]
 

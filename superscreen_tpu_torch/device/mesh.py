@@ -15,7 +15,7 @@ layout (they take an open ``h5py`` group), and ``triangulation`` and
 """
 
 from copy import deepcopy
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,11 +48,12 @@ class Mesh:
     Args:
         sites: ``(n, 2)`` vertex coordinates.
         elements: ``(m, 3)`` triangle vertex indices.
+        triangle_centroids: ``(m, 2)`` triangle centroids (None: derived
+            from the sites and elements).
         boundary_indices: Indices of boundary vertices.
         vertex_areas: ``(n,)`` effective vertex areas.
         triangle_areas: ``(m,)`` triangle areas.
-        triangle_centroids: ``(m, 2)`` triangle centroids (derived from
-            the sites and elements).
+        edge_mesh: The :class:`EdgeMesh` (None: built on first use).
         build_operators: Whether to build the :class:`MeshOperators`.
     """
 
@@ -60,9 +61,11 @@ class Mesh:
         self,
         sites: Sequence[Tuple[float, float]],
         elements: Sequence[Tuple[int, int, int]],
+        triangle_centroids: Optional[Sequence[Tuple[float, float]]],
         boundary_indices: Sequence[int],
         vertex_areas: Sequence[float],
         triangle_areas: Sequence[float],
+        edge_mesh: Optional[EdgeMesh],
         build_operators: bool = True,
     ):
         self.sites = np.asarray(sites, dtype=float)
@@ -70,10 +73,12 @@ class Mesh:
         self.boundary_indices = np.asarray(boundary_indices, dtype=np.int64)
         self.vertex_areas = np.asarray(vertex_areas, dtype=float)
         self.triangle_areas = np.asarray(triangle_areas, dtype=float)
-        self.triangle_centroids = self.sites[self.elements].mean(axis=1)
+        if triangle_centroids is None:
+            triangle_centroids = self.sites[self.elements].mean(axis=1)
+        self.triangle_centroids = np.asarray(triangle_centroids, dtype=float)
         self.operators = MeshOperators.from_mesh(self) if build_operators else None
         self._spatial_index: Dict[str, object] = {}
-        self._edge_mesh = None
+        self._edge_mesh = edge_mesh
         self._triangulation = None
 
     @property
@@ -106,6 +111,8 @@ class Mesh:
         return Mesh(
             sites=sites,
             elements=elements,
+            triangle_centroids=None,
+            edge_mesh=None,
             boundary_indices=Mesh.find_boundary_indices(elements),
             vertex_areas=mgen.vertex_areas(sites, elements, tri_areas=tri_areas),
             triangle_areas=tri_areas,
@@ -194,14 +201,14 @@ class Mesh:
         clone = Mesh(
             sites=self.sites.copy(),
             elements=self.elements.copy(),
+            triangle_centroids=None,
             boundary_indices=self.boundary_indices.copy(),
             vertex_areas=self.vertex_areas.copy(),
             triangle_areas=self.triangle_areas.copy(),
+            edge_mesh=None if self._edge_mesh is None else self._edge_mesh.copy(),
             build_operators=False,
         )
         clone.operators = deepcopy(self.operators)
-        if self._edge_mesh is not None:
-            clone._edge_mesh = self._edge_mesh.copy()
         return clone
 
     def smooth(self, iterations: int, build_operators: bool = True) -> "Mesh":
@@ -272,16 +279,15 @@ class Mesh:
                 sites=np.array(h5group["sites"]).squeeze(),
                 elements=np.array(h5group["elements"]),
             )
-        mesh = Mesh(
+        return Mesh(
             sites=np.array(h5group["sites"], dtype=float),
             elements=np.array(h5group["elements"], dtype=np.int64),
+            triangle_centroids=np.array(h5group["triangle_centroids"], dtype=float),
             boundary_indices=np.array(h5group["boundary_indices"], dtype=np.int64),
             vertex_areas=np.array(h5group["vertex_areas"], dtype=float),
             triangle_areas=np.array(h5group["triangle_areas"], dtype=float),
+            edge_mesh=EdgeMesh.from_hdf5(h5group["edge_mesh"]),
         )
-        mesh.triangle_centroids = np.array(h5group["triangle_centroids"], dtype=float)
-        mesh._edge_mesh = EdgeMesh.from_hdf5(h5group["edge_mesh"])
-        return mesh
 
 
 class MeshOperators:

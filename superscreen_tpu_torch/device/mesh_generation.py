@@ -2,9 +2,11 @@
 
 Counterpart of ``superscreen_tpu/device/mesh_generation.py``: the same
 boundary-conforming Delaunay construction (densified rings, hexagonal
-lattice fill, Laplacian smoothing, refinement loop), with SciPy's Delaunay
-in place of the native kernel and :func:`points_in_ring` in place of
-matplotlib paths.
+lattice fill, Laplacian smoothing, refinement loop), triangulated by the
+geometry core's Bowyer-Watson routine (:mod:`superscreen_tpu_torch.native`,
+the JAX package's default) or, with ``SUPERSCREEN_TPU_NATIVE=0``, by
+SciPy's Delaunay, which gives the same triangles in another order; and
+:func:`points_in_ring` in place of matplotlib paths.
 
 Lattice points are kept only if they lie inside the region, outside every
 hole ring, and more than ``0.55 h`` from every ring vertex.  Rings are
@@ -18,8 +20,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 from scipy import spatial
 
+from .. import native
 from .. import polygon_ops as ops
 from ..geometry import ensure_unique
+from ..ops.fem import triangle_areas, vertex_areas
 from .polygon import points_in_ring
 
 logger = logging.getLogger("device")
@@ -33,28 +37,6 @@ __all__ = [
     "triangle_areas",
     "vertex_areas",
 ]
-
-
-def triangle_areas(points: np.ndarray, triangles: np.ndarray) -> np.ndarray:
-    """Signed areas of each triangle (positive for CCW vertex order)."""
-    xy = points[triangles]
-    s = xy[:, [2, 0]] - xy[:, [1, 2]]
-    return 0.5 * np.linalg.det(s)
-
-
-def vertex_areas(
-    points: np.ndarray,
-    triangles: np.ndarray,
-    tri_areas: Optional[np.ndarray] = None,
-) -> np.ndarray:
-    """Effective vertex areas: one third of the summed adjacent triangle
-    areas (the lumped FEM mass matrix diagonal)."""
-    if tri_areas is None:
-        tri_areas = triangle_areas(points, triangles)
-    v_areas = np.zeros(len(points), dtype=float)
-    third = np.broadcast_to((tri_areas / 3)[:, None], triangles.shape)
-    np.add.at(v_areas, triangles, third)
-    return v_areas
 
 
 def get_edges(triangles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -181,19 +163,33 @@ def _in_region(region: np.ndarray, holes: List[np.ndarray], pts: np.ndarray):
     return keep
 
 
+def _delaunay(pts: np.ndarray) -> np.ndarray:
+    """Delaunay triangles of ``pts``: the geometry core's, or SciPy's with
+    ``SUPERSCREEN_TPU_NATIVE=0`` or where the core's routine gives up."""
+    if native.available():
+        tris = native.delaunay(pts)
+        if tris is not None:
+            return tris
+    return spatial.Delaunay(pts).simplices
+
+
 def _build_once(
     region_ring: np.ndarray,
     hole_rings: List[np.ndarray],
     feature_rings: List[np.ndarray],
+    extra_points: Optional[np.ndarray],
     h: float,
     preserve_boundary: bool = False,
     smooth_rounds: int = 2,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    # 1. Fixed points: boundary ring + feature rings, taken as given when
-    # the boundary is preserved and subdivided to segments <= h otherwise.
+    # 1. Fixed points: boundary ring + feature rings (taken as given when
+    # the boundary is preserved and subdivided to segments <= h otherwise)
+    # + extra points.
     ring_points = ops.orient_ccw if preserve_boundary else (lambda r: _densify_ring(r, h))
     bring = ring_points(region_ring)
     fixed = [bring] + [ring_points(ring) for ring in hole_rings + feature_rings]
+    if extra_points is not None and len(extra_points):
+        fixed.append(np.atleast_2d(extra_points))
     fixed_pts = ensure_unique(np.concatenate(fixed, axis=0))
     region = _closed(bring)
     holes = [_closed(ops.orient_ccw(hr)) for hr in hole_rings]
@@ -210,7 +206,7 @@ def _build_once(
     n_fixed = len(fixed_pts)
 
     def triangulate(pts):
-        simplices = spatial.Delaunay(pts).simplices
+        simplices = _delaunay(pts)
         keep = _in_region(region, holes, pts[simplices].mean(axis=1))
         # Drop degenerate slivers (collinear boundary runs produce
         # zero-area Delaunay triangles along straight edges).
@@ -245,9 +241,14 @@ def generate_mesh(
     hole_coords: Optional[List[np.ndarray]] = None,
     min_points: Optional[int] = None,
     max_edge_length: Optional[float] = None,
-    feature_rings: Optional[Sequence[np.ndarray]] = None,
+    convex_hull: bool = False,
+    boundary: Optional[np.ndarray] = None,
     preserve_boundary: bool = False,
+    min_angle: float = 32.5,
+    feature_rings: Optional[Sequence[np.ndarray]] = None,
+    extra_points: Optional[np.ndarray] = None,
     smooth_rounds: int = 2,
+    **kwargs,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Generates a boundary-conforming Delaunay mesh for a polygonal region.
 
@@ -257,16 +258,26 @@ def generate_mesh(
         min_points: Minimum number of vertices in the resulting mesh.
         max_edge_length: Maximum length of (interior, if
             ``preserve_boundary``) mesh edges.
+        convex_hull: Mesh the whole convex hull of ``poly_coords``, which
+            becomes a feature ring.
+        boundary: An explicit outer boundary ring; ``poly_coords`` becomes
+            a feature ring the mesh conforms to.  Not with ``convex_hull``.
         preserve_boundary: Do not add vertices to the boundary (mandatory
             for films with transport terminals).
+        min_angle: Accepted, as by the JAX package, for the API of the
+            reference's Triangle mesher, and not used: the lattice and the
+            smoothing set the mesh quality.
         feature_rings: Polygon outlines the mesh must conform to (their
             interiors are meshed).
+        extra_points: Isolated vertices to include, kept as fixed points.
         smooth_rounds: Rounds of (smooth + re-triangulate) per build.
+        kwargs: Accepted and not used, as by the JAX package.
 
     Returns:
         ``(points, triangles)``: vertex coordinates and triangle indices.
     """
-    region_ring = ops.orient_ccw(ensure_unique(np.asarray(poly_coords, dtype=float)))
+    del min_angle, kwargs  # API-parity arguments; unused by this generator.
+    poly_coords = ensure_unique(np.asarray(poly_coords, dtype=float))
     hole_rings = [
         ops.orient_ccw(ensure_unique(np.asarray(c, dtype=float)))
         for c in (hole_coords or [])
@@ -275,6 +286,18 @@ def generate_mesh(
         ops.orient_ccw(ensure_unique(np.asarray(c, dtype=float)))
         for c in (feature_rings or [])
     ]
+    if convex_hull:
+        if boundary is not None:
+            raise ValueError(
+                "Cannot have both boundary is not None and convex_hull = True."
+            )
+        region_ring = poly_coords[spatial.ConvexHull(poly_coords).vertices]
+        feat_rings = [poly_coords] + feat_rings
+    elif boundary is not None:
+        region_ring = ops.orient_ccw(ensure_unique(np.asarray(boundary, dtype=float)))
+        feat_rings = [poly_coords] + feat_rings
+    else:
+        region_ring = ops.orient_ccw(poly_coords)
     seg_lengths = np.linalg.norm(np.diff(_closed(region_ring), axis=0), axis=1)
     area = ops.polygon_area(region_ring) - sum(
         ops.polygon_area(hr) for hr in hole_rings
@@ -291,7 +314,7 @@ def generate_mesh(
 
     for iteration in range(40):
         points, triangles = _build_once(
-            region_ring, hole_rings, feat_rings, h, preserve_boundary,
+            region_ring, hole_rings, feat_rings, extra_points, h, preserve_boundary,
             smooth_rounds=smooth_rounds,
         )
         edges, is_boundary = get_edges(triangles)

@@ -1,8 +1,9 @@
 """Planar polygon primitive.
 
 Counterpart of ``superscreen_tpu/device/polygon.py``.  Point queries use
-:func:`points_in_ring`, a NumPy crossing test that reproduces matplotlib's
-``Path.contains_points`` decision for points on the boundary, so mesh
+:func:`points_in_ring`, a crossing test (in the geometry core, with a
+NumPy twin) that reproduces matplotlib's ``Path.contains_points``
+decision for points on the boundary, so mesh
 index sets agree with the JAX package exactly; a nonzero ``radius`` tests
 against the outline offset by ``radius / 2`` with mitred corners
 (:func:`offset_ring`), as matplotlib's stroked contour does.  Plotting and
@@ -16,13 +17,14 @@ from typing import Iterable, Optional, Tuple, Union
 
 import numpy as np
 
+from .. import native
 from .. import polygon_ops as ops
 from ..geometry import close_curve
 from ..geometry import rotate as rotate_coords
 
 logger = logging.getLogger("device")
 
-__all__ = ["Polygon", "offset_ring", "points_in_ring"]
+__all__ = ["Polygon", "offset_ring", "points_in_ring", "points_in_ring_plain"]
 
 PolygonType = Union["Polygon", np.ndarray]
 
@@ -33,6 +35,17 @@ _BOOLEAN_OPS = frozenset(
 
 
 def points_in_ring(ring: np.ndarray, points: np.ndarray) -> np.ndarray:
+    """Crossing-number test of ``points`` against the closed ``ring``, as
+    matplotlib decides it (see :func:`points_in_ring_plain`): by the
+    geometry core (:func:`superscreen_tpu_torch.native.points_in_ring`),
+    or by the NumPy loop when ``SUPERSCREEN_TPU_NATIVE=0``.  Both give the
+    same mask, bit for bit."""
+    if native.available():
+        return native.points_in_ring(ring, points)
+    return points_in_ring_plain(ring, points)
+
+
+def points_in_ring_plain(ring: np.ndarray, points: np.ndarray) -> np.ndarray:
     """Crossing-number test of ``points`` against the closed ``ring``.
 
     The arithmetic is that of matplotlib's ``point_in_path_impl``
@@ -260,11 +273,22 @@ class Polygon:
         self,
         min_points: Optional[int] = None,
         max_edge_length: Optional[float] = None,
+        convex_hull: bool = False,
         smooth: int = 0,
         build_operators: bool = False,
         **mesh_kwargs,
     ):
-        """Triangulates the polygon into a :class:`Mesh`."""
+        """Triangulates the polygon into a :class:`Mesh`.
+
+        Args:
+            min_points: Minimum number of mesh vertices.
+            max_edge_length: Maximum edge length in the mesh.
+            convex_hull: Mesh the full convex hull instead of the interior.
+            smooth: Number of Laplacian smoothing passes.
+            build_operators: Also build the :class:`MeshOperators`.
+            mesh_kwargs: Passed on to
+                :func:`superscreen_tpu_torch.device.mesh_generation.generate_mesh`.
+        """
         from .mesh import Mesh
         from .mesh_generation import generate_mesh
 
@@ -272,6 +296,7 @@ class Polygon:
             self._points,
             min_points=min_points,
             max_edge_length=max_edge_length,
+            convex_hull=convex_hull,
             **mesh_kwargs,
         )
         mesh = Mesh.from_triangulation(
@@ -422,10 +447,13 @@ class Polygon:
         distance: float,
         join_style: Union[str, int] = "mitre",
         mitre_limit: float = 5.0,
+        single_sided: bool = False,
         as_polygon: bool = True,
     ) -> Union[np.ndarray, "Polygon"]:
         """Offsets the boundary outward by ``distance`` (inward if
-        negative), then resamples to at least the original vertex count."""
+        negative), then resamples to at least the original vertex count.
+        ``single_sided`` is accepted, as by the JAX package, and not used:
+        the offset of a closed ring is one-sided already."""
         offset_ring = ops.buffer_polygon(
             self._points,
             distance,

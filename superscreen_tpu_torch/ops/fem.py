@@ -18,8 +18,6 @@ from typing import Literal, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..device.mesh_generation import triangle_areas, vertex_areas
-from ..device.polygon import points_in_ring
 
 __all__ = [
     "COO",
@@ -143,6 +141,28 @@ class COO:
         return COO(self.cols, self.rows, self.vals, (self.shape[1], self.shape[0]))
 
 
+def triangle_areas(points: np.ndarray, triangles: np.ndarray) -> np.ndarray:
+    """Signed areas of each triangle (positive for CCW vertex order)."""
+    xy = points[triangles]
+    s = xy[:, [2, 0]] - xy[:, [1, 2]]
+    return 0.5 * np.linalg.det(s)
+
+
+def vertex_areas(
+    points: np.ndarray,
+    triangles: np.ndarray,
+    tri_areas: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Effective vertex areas: one third of the summed adjacent triangle
+    areas (the lumped FEM mass matrix diagonal)."""
+    if tri_areas is None:
+        tri_areas = triangle_areas(points, triangles)
+    v_areas = np.zeros(len(points), dtype=float)
+    third = np.broadcast_to((tri_areas / 3)[:, None], triangles.shape)
+    np.add.at(v_areas, triangles, third)
+    return v_areas
+
+
 def coo_to_dense(coo: COO, dtype=None) -> np.ndarray:
     """The dense NumPy array of a COO matrix (duplicates summed), in
     ``dtype`` (default: the values' dtype)."""
@@ -172,13 +192,20 @@ def adjacency_matrix(triangles: np.ndarray, sparse: bool = False) -> Union[np.nd
 
 
 def in_polygon(
-    poly_points: np.ndarray, query_points: np.ndarray
+    poly_points: np.ndarray, query_points: np.ndarray, radius: float = 0
 ) -> Union[bool, np.ndarray]:
-    """Which ``query_points`` lie inside the polygon (see
-    :func:`superscreen_tpu_torch.device.polygon.points_in_ring`)."""
+    """Which ``query_points`` lie inside the polygon, as matplotlib's
+    ``Path(poly_points).contains_points(query_points, radius=radius)``
+    decides it (see :func:`superscreen_tpu_torch.device.polygon.points_in_ring`;
+    a nonzero ``radius`` moves every edge by ``radius / 2`` to its right,
+    :func:`superscreen_tpu_torch.device.polygon.offset_ring`)."""
+    from ..device.polygon import offset_ring, points_in_ring
+
     ring = np.atleast_2d(np.asarray(poly_points, dtype=float))
     if not np.array_equal(ring[0], ring[-1]):
         ring = np.concatenate([ring, ring[:1]], axis=0)
+    if radius != 0:
+        ring = offset_ring(ring, radius / 2)
     bool_array = np.squeeze(points_in_ring(ring, query_points))
     if bool_array.ndim == 0:
         bool_array = bool_array.item()
@@ -326,11 +353,15 @@ def gradient_vertices_coo(
     points: np.ndarray,
     triangles: np.ndarray,
     areas: Optional[np.ndarray] = None,
+    weighting: str = "first_vertex",
 ) -> Tuple[COO, COO]:
     """Vertex gradient operators ``gx, gy`` of shape ``(n, n)``: the
     gradient at a vertex is the average of the gradients of its adjacent
-    triangles, weighted by each triangle's interior angle at its first
-    vertex (the JAX package's default ``"first_vertex"`` weighting)."""
+    triangles, angle-weighted.
+
+    ``weighting`` selects each adjacent triangle's angle: ``"first_vertex"``
+    (default) its interior angle at its first vertex, as the reference
+    does; ``"shared_vertex"`` its angle at the shared vertex."""
     points = np.asarray(points, dtype=float)
     triangles = np.asarray(triangles)
     n = len(points)
@@ -338,9 +369,16 @@ def gradient_vertices_coo(
         areas = triangle_areas(points, triangles)
     Gx, Gy = gradient_triangles_coo(points, triangles, areas=areas)
     angles = _triangle_angles(points, triangles)  # (m, 3)
-    # One weight per triangle (its angle at local vertex 0), applied to
-    # every vertex of that triangle.
-    tri_w = np.repeat(angles[:, :1], 3, axis=1)
+    if weighting == "first_vertex":
+        # One weight per triangle (its angle at local vertex 0), applied to
+        # every vertex of that triangle.
+        tri_w = np.repeat(angles[:, :1], 3, axis=1)
+    elif weighting == "shared_vertex":
+        tri_w = angles
+    else:
+        raise ValueError(
+            f"weighting must be 'first_vertex' or 'shared_vertex', got {weighting!r}."
+        )
     W = np.zeros(n)
     np.add.at(W, triangles, tri_w)
     # For each (triangle t, local vertex k of t, local vertex l of t):

@@ -3,6 +3,7 @@ from .solve_film import (
     LinearSystem,
     TerminalSystems,
     factorize_linear_systems,
+    solve_film,
     solve_for_terminal_current_stream,
 )
 from .utils import (
@@ -31,6 +32,7 @@ __all__ = [
     "field_conversion_factor",
     "make_film_info",
     "solve",
+    "solve_film",
     "solve_for_terminal_current_stream",
     "stream_from_current_density",
     "stream_from_terminal_current",

@@ -147,12 +147,14 @@ def _view(info64, film_system, hole_systems, terminal_systems, brandt_diag, seco
     )
 
 
-def build_hp_system(device, film_info, film_system) -> HighPrecisionSystem:
+def build_hp_system(device, film_info, film_system, terminal_systems=None) -> HighPrecisionSystem:
     """Re-assembles one film's linear systems in float64 on the film's
     torch device, by the same assembly as the float32 ones: the interior
     system, the per-hole effective-field systems and (for a film with
     terminals) the boundary and without-boundary(/holes) systems.  A film
-    without a materialized system (CG, BiCGStab) raises by name."""
+    without a materialized system (CG, BiCGStab) raises by name.
+    ``terminal_systems`` is accepted, as by the JAX package, and not used:
+    the terminal blocks are assembled from the device."""
     t0 = time.perf_counter()
     parts = _assemble64(device, film_info, film_system)
     return _view(*parts, time.perf_counter() - t0)

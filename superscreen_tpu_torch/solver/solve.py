@@ -34,7 +34,7 @@ from ..sweep import (
     vortex_flux_quantum,
     vortex_snapshot,
 )
-from .solve_film import LinearSystem, TerminalSystems, factorize_linear_systems
+from .solve_film import LinearSystem, TerminalSystems, factorize_linear_systems, solve_film
 from .utils import (
     FilmInfo,
     currents_to_floats,
@@ -439,6 +439,7 @@ def solve(
     progress_bar: bool = True,
     high_precision: bool = False,
     coupling: str = "auto",
+    _solver: str = "superscreen_tpu_torch.solve",
     torch_device="cuda",
 ) -> List[Solution]:
     """Computes stream functions and fields for all films in a device.
@@ -484,6 +485,7 @@ def solve(
         coupling: ``"auto"`` (default), ``"exact"`` or ``"fft"``, as for
             :func:`superscreen_tpu_torch.solve_many`, whose cost model
             ``"auto"`` shares.
+        _solver: The name written into each Solution's ``solver``.
         torch_device: ``"cuda"`` (default; raises without a card) or
             ``"cpu"``.  A given ``model`` must live on this device.
 
@@ -590,6 +592,7 @@ def solve(
                     circulating_currents=model.circulating_currents,
                     terminal_currents=model.terminal_currents,
                     vortices=vortex_list,
+                    solver=_solver,
                     torch_device=torch_device,
                 )
             )

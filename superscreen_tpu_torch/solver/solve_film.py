@@ -22,6 +22,9 @@ Laplacian's on the low-memory path.
 A film with transport terminals gets :class:`TerminalSystems`, whose
 interior block doubles as the film's main system, and its transport
 stream from :func:`solve_for_terminal_current_stream`.
+
+:func:`solve_film` solves one film for one drive on these systems, on the
+torch device that holds them, and returns its :class:`FilmSolution`.
 """
 
 import math
@@ -35,7 +38,8 @@ import torch
 from ..device import Device
 from ..io import new_group
 from ..ops import kernels, linalg
-from ..ops.fem import COO
+from ..ops.fem import COO, gather_matvec
+from ..solution import FilmSolution
 from .utils import FilmInfo, stream_from_terminal_current
 
 __all__ = [
@@ -48,6 +52,7 @@ __all__ = [
     "terminal_boundary_stream",
     "boundary_stream_from_indices",
     "solve_from_boundary_stream",
+    "solve_film",
     "permutation_to_pivots",
     "pivots_to_permutation",
 ]
@@ -503,6 +508,7 @@ def solve_for_terminal_current_stream(
     film_info: FilmInfo,
     terminal_systems: TerminalSystems,
     terminal_currents: Dict[str, float],
+    hp_system=None,
 ) -> np.ndarray:
     """Stream function from transport currents in a single film, ``(n,)``
     on the host.
@@ -518,6 +524,10 @@ def solve_for_terminal_current_stream(
     the raw array, and the remaining steps
     (:func:`solve_from_boundary_stream`) are linear in the boundary values.
     A terminal-current sweep uses exactly this decomposition.
+
+    With ``hp_system`` (a :class:`.refine.HighPrecisionSystem`), every
+    product and solve is float64: the float64 blocks with the float32
+    factors (see :func:`solve_from_boundary_stream`).
     """
     npoints = len(device.meshes[film_info.name].sites)
     if not any(terminal_currents.values()):
@@ -525,7 +535,7 @@ def solve_for_terminal_current_stream(
     g = terminal_boundary_stream(device, film_info, terminal_systems, terminal_currents)
     # The interior entries are still zero here, so max/ptp see them too.
     g = g - np.max(g) + np.ptp(g) / 2
-    return solve_from_boundary_stream(device, film_info, terminal_systems, g)
+    return solve_from_boundary_stream(device, film_info, terminal_systems, g, hp_system=hp_system)
 
 
 def terminal_boundary_stream(
@@ -573,12 +583,17 @@ def solve_from_boundary_stream(
     film_info: FilmInfo,
     terminal_systems: TerminalSystems,
     g: np.ndarray,
+    hp_system=None,
 ) -> np.ndarray:
     """Bootstrap steps 2-3 given the (already centered) boundary stream:
     solve the film interior ignoring holes, then pin each hole to its
     weighted average and re-solve.  Linear in ``g``'s boundary values.  The
     matrix products and solves run on the systems' torch device; ``g``
-    stays a float64 host array."""
+    stays a float64 host array.  With ``hp_system`` they run on its
+    float64 blocks, and each solve is refined to float64 around the
+    float32 factors."""
+    if hp_system is not None:
+        terminal_systems = _hp_terminal_systems(terminal_systems, hp_system)
     weights = device.meshes[film_info.name].operators.weights
     g = np.array(g, dtype=float, copy=True)
 
@@ -608,3 +623,209 @@ def solve_from_boundary_stream(
     Ha_eff += effective_field(terminal_systems.boundary)
     solve(terminal_systems.film_without_boundary_or_holes, Ha_eff)
     return g
+
+
+def _hp_terminal_systems(terminal_systems: TerminalSystems, hp_system) -> TerminalSystems:
+    """The float64 terminal systems of ``hp_system`` with the float32
+    factors of ``terminal_systems``: the bootstrap's solves are then
+    refined to float64 (:func:`ops.linalg.lu_solve_refined`)."""
+    ts = terminal_systems
+    rest = ts.film_without_boundary_or_holes
+    return TerminalSystems(
+        film=ts.film,
+        boundary=LinearSystem(A=hp_system.boundary_eff64, indices=ts.boundary.indices),
+        holes={
+            name: LinearSystem(A=hp_system.hole_eff64[name], indices=system.indices)
+            for name, system in ts.holes.items()
+        },
+        film_without_boundary=LinearSystem(
+            A=hp_system.fwb_A64,
+            indices=ts.film_without_boundary.indices,
+            lu_piv=ts.film_without_boundary.lu_piv,
+        ),
+        film_without_boundary_or_holes=None if rest is None else LinearSystem(
+            A=hp_system.fwboh_A64, indices=rest.indices, lu_piv=rest.lu_piv
+        ),
+    )
+
+
+def solve_film(
+    *,
+    device: Device,
+    applied_field,
+    film_info: FilmInfo,
+    film_system: LinearSystem,
+    hole_systems: Dict[str, LinearSystem],
+    field_conversion: float,
+    vortex_flux: float,
+    terminal_systems: Optional[TerminalSystems] = None,
+    field_from_other_films=None,
+    check_inversion: bool = False,
+    hp_system=None,
+) -> FilmSolution:
+    """Computes the stream function and fields within a single film, for
+    one drive, on the torch device that holds its systems.
+
+    Counterpart of ``superscreen_tpu.solver.solve_film.solve_film``: the
+    hole boundary conditions (dense effective-field blocks, or the
+    low-memory row-sum vectors), the transport stream of a film with
+    terminals and its boundary effective field, the interior solve (LU
+    with two float64-residual refinement steps, or the film's CG or
+    BiCGStab route), the vortex response columns (Brandt Eq. 28, one
+    refined solve over their unit columns), the current density by the
+    gather-form vertex gradients and the self-field: ``Q (w g)`` with the
+    film's dense kernel, matrix-free through ``q_apply`` on the low-memory
+    path (or once a model's sweep data has taken the kernel), and the
+    in-film Biot-Savart sum over triangle centroids for a film with
+    terminals.
+
+    Args:
+        device: The device being solved.
+        applied_field: Applied field at the film's mesh sites in solver
+            units (``current_units / length_units``), NumPy or a tensor.
+        film_info: The film's :class:`FilmInfo`.
+        film_system: The film's :class:`LinearSystem`.
+        hole_systems: ``{hole_name: LinearSystem}``.
+        field_conversion: Factor from the user's field units to solver
+            units.
+        vortex_flux: Flux of one vortex in solver units.
+        terminal_systems: The film's :class:`TerminalSystems`, if it has
+            terminals.
+        field_from_other_films: Screening field from the other films in
+            solver units, NumPy or a tensor.
+        check_inversion: Warn, as :func:`superscreen_tpu_torch.solve`
+            does, if ``-A g`` does not reproduce the right-hand side within
+            ``numpy.allclose``'s tolerances.
+        hp_system: A :class:`superscreen_tpu_torch.solver.refine.HighPrecisionSystem`
+            of the film: every solve is refined to float64 around the
+            film's factors (:func:`ops.linalg.refined_solve`), and the hole
+            fields, the current density and the self-field are float64.
+
+    Returns:
+        A :class:`FilmSolution`, fields in the user's units.
+    """
+    from ..sweep import _check_inversion, _terminal_boundary_ha
+
+    name = film_info.name
+    mesh = device.meshes[name]
+    points = mesh.sites
+    weights = film_info.weights if hp_system is None else hp_system.weights64
+    dtype, torch_device = weights.dtype, weights.device
+
+    def tensor(array) -> torch.Tensor:
+        return torch.as_tensor(array).to(dtype=dtype, device=torch_device)
+
+    applied_field = tensor(applied_field)
+    Hz = applied_field
+    if field_from_other_films is not None:
+        field_from_other_films = tensor(field_from_other_films)
+        Hz = Hz + field_from_other_films
+    g = torch.zeros_like(Hz)
+    Ha_eff = torch.zeros_like(Hz)
+
+    # Hole boundary conditions: g[hole] = I_circ and its effective field.
+    for hole, system in hole_systems.items():
+        idx = torch.as_tensor(system.indices, device=torch_device)
+        current = film_info.circulating_currents.get(hole, 0)
+        g[idx] += current
+        A = system.A if hp_system is None else hp_system.hole_eff64[hole]
+        if A.ndim == 1:
+            # Low-memory: the effective field of a unit circulating current.
+            Ha_eff -= A * current
+        else:
+            Ha_eff -= A @ g[idx]
+
+    if name in device.terminals:
+        g_transport = solve_for_terminal_current_stream(
+            device, film_info, terminal_systems, film_info.terminal_currents or {},
+            hp_system=hp_system,
+        )
+        g += tensor(g_transport)
+        Ha_eff += tensor(
+            _terminal_boundary_ha(points, film_info.boundary_indices, g_transport, weights)
+        )
+
+    idx = torch.as_tensor(film_system.indices, device=torch_device)
+    h = (Hz - Ha_eff)[idx]
+    matrix_free = hp_system is None and film_system.cg_op is not None
+    if hp_system is not None:
+        A = hp_system.A64
+        precond = linalg.mixed_preconditioner(film_system.lu_piv, dtype)
+
+        def solve(rhs):
+            return linalg.refined_solve(A, precond, rhs)
+
+    elif matrix_free:
+        A = None
+
+        def solve(rhs):
+            cols = rhs[:, None] if rhs.ndim == 1 else rhs
+            x = linalg.matrix_free_solve_host(film_system.cg_op, cols)
+            return x[:, 0] if rhs.ndim == 1 else x
+
+    else:
+        A = film_system.A
+
+        def solve(rhs):
+            return linalg.lu_solve_refined(A, film_system.lu_piv, rhs)
+
+    gf = solve(h)
+    g[idx] += gf
+    if check_inversion and A is not None:
+        _check_inversion(name, A, h[:, None], gf[:, None])
+
+    if film_info.vortices:
+        # Brandt Eq. 28: one solve over the vortices' unit columns.
+        rhs = torch.zeros((len(idx), len(film_info.vortices)), dtype=dtype, device=torch_device)
+        scales = torch.zeros(len(film_info.vortices), dtype=dtype, device=torch_device)
+        film_points = points[film_system.indices]
+        for k, vortex in enumerate(film_info.vortices):
+            xy = (vortex.x, vortex.y)
+            j_film = int(np.argmin(np.linalg.norm(film_points - xy, axis=1)))
+            j_device = int(np.argmin(np.linalg.norm(points - xy, axis=1)))
+            rhs[j_film, k] = 1.0
+            scales[k] = vortex_flux * vortex.nPhi0 / weights[j_device]
+        g[idx] += -solve(rhs) @ scales
+
+    # Current density J = curl(g z) = (dg/dy, -dg/dx).
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    ops = mesh.operators
+
+    def grad(op, x):
+        return gather_matvec(*op.to_gather(np_dtype, torch_device), x)
+
+    J = torch.stack([grad(ops.gradient_y, g), -grad(ops.gradient_x, g)], dim=1)
+    sites = tensor(points if hp_system is not None else film_info.sites)
+    if name in device.terminals:
+        J_tri = torch.stack([grad(ops.gradient_tri_y, g), -grad(ops.gradient_tri_x, g)], dim=1)
+        screening_field = kernels.biot_savart_within_film(
+            sites, tensor(mesh.triangle_centroids), tensor(mesh.triangle_areas), J_tri
+        )
+    elif hp_system is not None:
+        # Q (w g) with Q_ii w_i = brandt_diag_i and -q_ij off the diagonal.
+        screening_field = hp_system.brandt_diag64 * g - kernels.q_apply(
+            sites, (weights * g)[:, None]
+        )[:, 0]
+    elif film_info.kernel is not None:
+        # Q (w g), summed in float64 for a float32 kernel (as the sweep
+        # sums its self-field: the terms cancel to a small part of their sum).
+        wg = (weights * g)[:, None]
+        if film_info.kernel.dtype == torch.float32:
+            wg = wg.double()
+            screening_field = kernels.residual_f64(film_info.kernel, wg, torch.zeros_like(wg))
+        else:
+            screening_field = film_info.kernel @ wg
+        screening_field = screening_field[:, 0].to(dtype)
+    else:
+        screening_field = kernels.Q_apply(sites, weights, weights * g)
+
+    def user_units(t):
+        return None if t is None else (t / field_conversion).cpu().numpy()
+
+    return FilmSolution(
+        stream=g.cpu().numpy(),
+        current_density=J.cpu().numpy(),
+        applied_field=user_units(applied_field),
+        self_field=user_units(screening_field),
+        field_from_other_films=user_units(field_from_other_films),
+    )

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..device.device import Device  # noqa: F401  (in the namespace, as in the JAX package)
 from ..ops import kernels
 from ..solution import Solution
 from ..solver import FactorizedModel, factorize_model

@@ -328,9 +328,13 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     the in-film Biot-Savart sum over triangle-centroid currents.
 
     Float64 streams on float32 film data (a polished sweep) take the same
-    operators widened: the pairwise sums run in float64, and the dense
-    ``Q diag(w)`` is applied by :func:`ops.kernels.residual_f64`, which
-    multiplies a float32 matrix with float64 columns in float64."""
+    operators widened: the pairwise sums run in float64.  The dense
+    float32 ``Q diag(w)`` is applied by :func:`ops.kernels.residual_f64`,
+    which multiplies a float32 matrix with float64 columns in float64,
+    for float32 streams too: the diagonal and the off-diagonal terms
+    cancel to a small part of their sum, so a float32 product of ~20,000
+    terms leaves errors of ~1e-4 of the self-field (``chip_smoke.py``
+    phase 16); the result comes back in the streams' dtype."""
     if g.dtype != data.weights.dtype:
         data = _widened(data, g.dtype)
     if data.terminal:
@@ -344,9 +348,9 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
         return data.brandt_diag[None, :] * g - kernels.q_apply(data.sites, wg.T.contiguous()).T
     if data.Qw is None:
         return kernels.Q_apply(data.sites, data.weights, (data.weights[None, :] * g).T).T
-    if data.Qw.dtype != g.dtype:
-        gT = g.T.contiguous()
-        return kernels.residual_f64(data.Qw, gT, torch.zeros_like(gT)).T
+    if data.Qw.dtype == torch.float32:
+        gT = g.T.double().contiguous()
+        return kernels.residual_f64(data.Qw, gT, torch.zeros_like(gT)).T.to(g.dtype)
     return (data.Qw @ g.T).T
 
 
@@ -375,16 +379,17 @@ def _vortex_term(data: FilmSweepData, vortex_flux: float) -> torch.Tensor:
     return data.vortex_cols @ eff.T
 
 
-def _check_inversion(data: FilmSweepData, h: torch.Tensor, gf: torch.Tensor) -> None:
-    """Warns if the solved interior stream ``gf`` does not reproduce the
-    right-hand side ``h`` (both ``(ni, B)``): ``-A gf`` must equal ``h``
-    within ``numpy.allclose``'s tolerances (``1e-8 + 1e-5 |h|`` per
-    entry).  The difference is the float64 residual ``h + A gf``."""
-    r = linalg.system_residual(data.A, h.double(), gf.double())
+def _check_inversion(name: str, A: torch.Tensor, h: torch.Tensor, gf: torch.Tensor) -> None:
+    """Warns if the solved interior stream ``gf`` of film ``name`` does
+    not reproduce the right-hand side ``h`` (both ``(ni, B)``): ``-A gf``
+    must equal ``h`` within ``numpy.allclose``'s tolerances (``1e-8 +
+    1e-5 |h|`` per entry).  The difference is the float64 residual
+    ``h + A gf``."""
+    r = linalg.system_residual(A, h.double(), gf.double())
     err = r.abs()
     if bool(torch.any(err > 1e-8 + 1e-5 * h.double().abs())):
         logger.warning(
-            f"Unable to solve for stream function in {data.name!r}, "
+            f"Unable to solve for stream function in {name!r}, "
             f"maximum error {float(err.max()):.3e}."
         )
 
@@ -421,7 +426,7 @@ def _solve_film_batch(
             if refine_steps:
                 gf = linalg.refine_safeguarded(solve, data.A, hT, gf, refine_steps)
         if check_inversion:
-            _check_inversion(data, hT, gf)
+            _check_inversion(data.name, data.A, hT, gf)
     if data.vortex_cols is not None:
         gf = gf + _vortex_term(data, vortex_flux)
     # The interior indices are unique, so the scatter-add is exact.

@@ -12,16 +12,16 @@ import superscreen_tpu as sc
 import superscreen_tpu_torch as st
 from superscreen_tpu_torch import about, testing
 
-# Left out of the port (ROADMAP): the native meshing core, the single-film
-# solve over the JAX package's LinearSystems, multi-GPU sharding, and the
-# JAX package's compile-statistics counter.
+# Left out of the port (ROADMAP): by design, the JAX package's
+# compile-statistics counter; multi-GPU sharding (the parallel package) is
+# not among the modules compared here.
 LEFT_OUT = {
-    "solver.solve_film": {"solve_film", "FACTORIZE_STATS"},
+    "solver.solve_film": {"FACTORIZE_STATS"},
 }
 MODULES = [
     "about", "distance", "fem", "io", "testing", "version", "visualization",
     "device.mesh_cache", "device.mesh_generation", "solver", "solver.solve",
-    "solver.solve_film", "solver.utils",
+    "solver.solve_film", "solver.utils", "native", "ops",
 ]
 
 

@@ -905,3 +905,53 @@ def test_public_cdist_and_C_vector_compute_on_the_card(cuda, dtype):
     want = st.MeshOperators.C_vector(sites, torch_device="cpu")
     assert got.dtype == want.dtype == dtype
     assert np.all(np.abs(got - want) <= tol * np.abs(want))
+
+
+@pytest.mark.parametrize("low_memory", [False, True])
+def test_native_core_builds_and_solve_film_matches_cpu(cuda, monkeypatch, low_memory):
+    """The geometry core builds with the host compiler of the card's
+    machine and decides points as its NumPy twin does; ``solve_film`` on a
+    film of about 2,000 sites with a hole current and a vortex runs on the
+    card (the refinement through residual_f64; the self-field through
+    q_apply on the low-memory path) and matches the same call on the CPU
+    (float32, 1e-5 of max|g|)."""
+    import importlib
+
+    from superscreen_tpu_torch import native
+    from superscreen_tpu_torch.device.polygon import points_in_ring_plain
+    from superscreen_tpu_torch.solver.utils import field_conversion_factor, make_film_info
+
+    solve_film = importlib.import_module("superscreen_tpu_torch.solver.solve_film")
+    assert native.available()
+    rng = np.random.default_rng(11)
+    ring = st.geometry.close_curve(st.geometry.circle(3, points=500))
+    queries = np.concatenate([rng.uniform(-3.5, 3.5, (20000, 2)), ring])
+    assert np.array_equal(native.points_in_ring(ring, queries), points_in_ring_plain(ring, queries))
+    if low_memory:
+        monkeypatch.setattr(st.solver.utils, "MAX_DENSE_KERNEL_SIZE", 10)
+    device = _two_films(2000, "float32")
+    conv = field_conversion_factor("mT", "uA", length_units="um").magnitude
+    n = len(device.meshes["big"].sites)
+    applied = conv * (0.5 + 0.1 * rng.standard_normal(n))
+    others = conv * 0.05 * rng.standard_normal(n)
+    solutions = {}
+    for where in ("cuda", "cpu"):
+        info = make_film_info(
+            device=device, circulating_currents={"big_hole": 2.0},
+            vortices=[st.Vortex(x=5.0, y=0.5, film="big")], films=["big"], torch_device=where,
+        )
+        films, holes, terminals = solve_film.factorize_linear_systems(device, info)
+        before = dict(cuda_kernels.LAUNCHES)
+        solutions[where] = solve_film.solve_film(
+            device=device, applied_field=applied, film_info=info["big"],
+            film_system=films["big"], hole_systems=holes["big"], field_conversion=conv,
+            vortex_flux=float(st.ureg("Phi_0 / mu_0").to("uA * um").magnitude),
+            field_from_other_films=others,
+        )
+        if where == "cuda":
+            assert cuda_kernels.LAUNCHES["residual_f64"] > before["residual_f64"]
+            if low_memory:
+                assert cuda_kernels.LAUNCHES["q_apply"] > before["q_apply"]
+    for quantity in ("stream", "current_density", "self_field"):
+        got, want = (getattr(solutions[w], quantity) for w in ("cuda", "cpu"))
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), quantity

@@ -209,7 +209,7 @@ def _load_reference_system(tag):
     with h5py.File(io.BytesIO(), "w") as f:
         f["indices"] = np.arange(3)
         f[key] = np.eye(3)
-        st.solver.solve_film.LinearSystem.from_hdf5(f, "cpu")
+        st.solver.LinearSystem.from_hdf5(f, "cpu")
 
 
 @pytest.mark.parametrize("tag", ["chol", "inv", "cg"])
@@ -294,6 +294,7 @@ def test_import_pulls_in_no_jax_or_reference_package():
         "before = set(sys.modules)\n"
         "import superscreen_tpu_torch\n"
         "import superscreen_tpu_torch.sweep, superscreen_tpu_torch.ops.cuda_kernels\n"
+        "import superscreen_tpu_torch.native\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "banned = {'jax', 'jaxlib', 'superscreen_tpu', 'matplotlib', 'h5py', 'dill'}\n"
         "print(sorted(new & banned))\n"
@@ -334,7 +335,7 @@ def test_every_module_imports_with_the_other_packages_blocked():
     names = out.stdout.split()
     assert len(names) >= 30
     for module in ("fluxoid", "solution", "ops.interp", "sources.current", "sources.dipole",
-                   "sources.vortex", "ops.cuda_kernels"):
+                   "sources.vortex", "ops.cuda_kernels", "native"):
         assert f"superscreen_tpu_torch.{module}" in names
 
 
