@@ -185,8 +185,10 @@ transfer at their sizes.  Phase 12 drives the FFT coupling.
 
 Phase 1 also runs residual_f64 (R = H + A X, a float32 A with float64
 right-hand sides and sums) against its plain version at 16,768 unknowns
-with 1, 4 and 8 columns and on a rectangular block, twice for bitwise
-equality, beside the widened route and the float32 addmm; it runs q_apply, biot_savart_batch and biot_savart_pair against
+with 1, 4 and 8 columns, on a rectangular block, at 20,274 unknowns with
+6 columns, 6,715 with 64 and 15,000 with 2,048 (one launch per call at
+every k), twice for bitwise equality, beside the widened route and the
+float32 addmm (and cuBLAS DGEMM on a pre-widened A at k = 2,048); it runs q_apply, biot_savart_batch and biot_savart_pair against
 their plain versions on the 27,000-site films, the pair kernel against two
 biot_savart_batch passes (its time and its ratio to theirs), and two
 launches of each register-blocked kernel (q_apply, biot_savart_batch,
@@ -348,9 +350,13 @@ SOLVE_FILM_REL_MAX = 1e-5
 
 # Peak rates of an H100 SXM at its 700 W limit (132 SMs at 1.98 GHz;
 # NVIDIA's data sheet): HBM bytes, FP32 and FP64 operations outside the
-# tensor cores (an FMA counts 2), and reciprocal square roots on the
-# special-function units (16 per clock per SM).
-H100_RATES = {"bytes": 3.35e12, "float32": 66.9e12, "float64": 33.5e12, "rsqrt": 4.18e12}
+# tensor cores (an FMA counts 2), FP64 operations on the tensor cores
+# (DMMA), and reciprocal square roots on the special-function units (16
+# per clock per SM).
+H100_RATES = {
+    "bytes": 3.35e12, "float32": 66.9e12, "float64": 33.5e12, "float64_tensor": 67e12,
+    "rsqrt": 4.18e12,
+}
 
 
 def _flops_per_pair(kernel, cols):
@@ -385,17 +391,27 @@ def _bound(kernel, dtype, n_eval, n_src, cols):
     return times[what] * 1e3, what
 
 
-def _residual_bound(m, n, k, h_size=8):
-    """The least time in ms for one residual_f64 launch, and what sets it:
-    the float32 A (m, n), the float64 X (n, k) and the H (m, k) read once
-    and the float64 R (m, k) written once over the HBM rate, or the
-    2 m n k float64 operations over the FP64 rate."""
+def _residual_bound(m, n, k, x_size=8, h_size=8, r_size=8):
+    """The least time in ms for one residual_f64 call, and what sets it:
+    the float32 A (m, n), the X (n, k) and the H (m, k) read once and the
+    R (m, k) written once over the HBM rate (element sizes in bytes; no H
+    is 0), or the 2 m n k float64 operations over the FP64 tensor cores'
+    rate (the fastest FP64 the card has; the stream route runs on the FP64
+    units at half of it)."""
     times = {
-        "bytes": (4 * m * n + 8 * n * k + (h_size + 8) * m * k) / H100_RATES["bytes"],
-        "float64": 2 * m * n * k / H100_RATES["float64"],
+        "bytes": (4 * m * n + x_size * n * k + (h_size + r_size) * m * k) / H100_RATES["bytes"],
+        "float64_tensor": 2 * m * n * k / H100_RATES["float64_tensor"],
     }
     what = max(times, key=times.get)
     return times[what] * 1e3, what
+
+
+# k at which residual_f64's operations (2 m n k) take as long as the bytes
+# of A (4 m n): against the FP64 tensor cores and against the FP64 units.
+RESIDUAL_CROSSOVER_K = {
+    "float64_tensor": 2 * H100_RATES["float64_tensor"] / H100_RATES["bytes"],
+    "float64": 2 * H100_RATES["float64"] / H100_RATES["bytes"],
+}
 
 
 def _bound_text(bound, ms):
@@ -530,41 +546,100 @@ def _residual_inputs(torch, m, n, k, seed):
     return A, X, H
 
 
+# residual_f64's shapes (m, n, k) on the main paths: the solve's
+# refinement (k = 1), the mutual-inductance sweep (4), solve_many, the
+# polish and the certificate (8) on the 27k stack's interior systems
+# (16,766-16,772 unknowns: rows 16-byte aligned at 16,768, the stream
+# route's TMA, and 8 bytes off at 16,766, its windows); a
+# rectangular block (the terminal bootstrap's route); a dense film's
+# self-field at phase 2's 20,274 sites (k = 6: rows 8 mod 16 bytes apart);
+# the adjoint scan's refinement at B = 64 on config 5's 6,715 interior
+# unknowns; one block of 2,048 identity columns of phase 13's landscape.
+RESIDUAL_SHAPES = [
+    (RESIDUAL_N, RESIDUAL_N, 1), (RESIDUAL_N - 2, RESIDUAL_N - 2, 1), (RESIDUAL_N, RESIDUAL_N, 4),
+    (RESIDUAL_N, RESIDUAL_N, 8),
+    (RESIDUAL_N // 3 + 5, RESIDUAL_N, 11), (20274, 20274, 6), (6715, 6715, 64),
+    (15000, 15000, 2048),
+]
+
+
 def phase_residual_kernel(torch, kernels, cuda_kernels):
     """residual_f64 (R = H + A X, A float32, the rest float64) against its
-    plain version at the size of the 27,000-site stack's interior systems
-    (RESIDUAL_N) with k = 1, 4 and 8 columns, and on a rectangular block
-    with 11 columns (two launches).  Both are float64 sums of exact
-    products in another order, so they agree to TOL["float64"]; two launches
-    agree to the bit.  Beside the kernel's time: its bound, the widened
-    blocked route (the plain version) and the float32 ``h + A @ x``, which
-    is no yardstick for the result (it rounds every product) but reads the
-    same bytes.  Returns the kernel's row for the summary line."""
+    plain version at RESIDUAL_SHAPES, one launch per call at every k.  Both
+    are float64 sums of exact products in another order, so they agree to
+    TOL["float64"]; two launches agree to the bit.  Beside the kernel's
+    time: its plan (route, split-K, grid, blocks per SM), its bound, the
+    widened blocked route (the plain version) and the float32
+    ``h + A @ x``, which is no yardstick for the result (it rounds every
+    product) but reads the same bytes; at k = 2,048 also cuBLAS DGEMM on a
+    pre-widened float64 A, which leaves out the widening (not the same
+    function: the card's FP64 GEMM rate).  Returns the kernel's row (k = 1)
+    for the summary line."""
     row = None
-    n = RESIDUAL_N
-    for m, k in ((n, 1), (n, 4), (n, 8), (n // 3 + 5, 11)):
+    print(
+        "phase1 residual_f64 crossover reckoned: the operations of the FP64 tensor cores "
+        f"match the bytes of A at k = {RESIDUAL_CROSSOVER_K['float64_tensor']:.1f}, those of "
+        f"the FP64 units at k = {RESIDUAL_CROSSOVER_K['float64']:.1f}; the plan takes the "
+        f"tensor-core route from k = {cuda_kernels.RESIDUAL_MMA_MIN_K_ALIGNED} where every row "
+        f"of A is 16-byte aligned (the stream route's TMA), from k = "
+        f"{cuda_kernels.RESIDUAL_MMA_MIN_K} elsewhere"
+    )
+    for m, n, k in RESIDUAL_SHAPES:
         A, X, H = _residual_inputs(torch, m, n, k, seed=77 + k)
+        before = cuda_kernels.LAUNCHES["residual_f64"]
+        out = cuda_kernels.residual_f64(A, X, H)
+        _require(cuda_kernels.LAUNCHES["residual_f64"] == before + 1, "one launch per call")
         abs_err, rel = _check_against_plain(
-            torch, f"residual_f64 m={m} k={k}", torch.float64,
-            cuda_kernels.residual_f64(A, X, H), kernels.residual_f64_plain(A, X, H),
+            torch, f"residual_f64 m={m} n={n} k={k}", torch.float64, out,
+            kernels.residual_f64_plain(A, X, H),
         )
+        del out
         _check_deterministic(
-            torch, f"residual_f64 m={m} k={k}", lambda: cuda_kernels.residual_f64(A, X, H)
+            torch, f"residual_f64 m={m} n={n} k={k}", lambda: cuda_kernels.residual_f64(A, X, H)
         )
-        ms = _timed(torch, lambda: cuda_kernels.residual_f64(A, X, H), 20)
-        plain_ms = _timed(torch, lambda: kernels.residual_f64_plain(A, X, H), 3)
+        plan = cuda_kernels.residual_plan(
+            m, n, k, torch.cuda.get_device_properties(0).multi_processor_count,
+            cuda_kernels._rows_aligned(A),
+        )
+        blocks, smem = cuda_kernels.residual_occupancy(plan, X.dtype)
+        wide = k > 100
+        ms = _timed(torch, lambda: cuda_kernels.residual_f64(A, X, H), 3 if wide else 20)
+        plain_ms = _timed(torch, lambda: kernels.residual_f64_plain(A, X, H), 1 if wide else 3)
         x32, h32 = X.float(), H.float()
-        f32_ms = _timed(torch, lambda: torch.addmm(h32, A, x32), 20)
-        launches = -(-k // 8)
-        one = _residual_bound(m, n, min(k, 8))
-        bound = (launches * one[0], one[1])
+        f32_ms = _timed(torch, lambda: torch.addmm(h32, A, x32), 3 if wide else 20)
+        del x32, h32
+        bound = _residual_bound(m, n, k)
         print(
             f"phase1 residual_f64 m={m} n={n} k={k}: max_abs_err={abs_err:.3e} rel_err={rel:.3e} "
-            f"(limit {TOL['float64']:.0e}) kernel_ms={ms:.4f} ({launches} launch) "
+            f"(limit {TOL['float64']:.0e}) kernel_ms={ms:.4f} (1 launch; route {plan.route}, "
+            f"width {plan.width}, {plan.splits} splits of {plan.split_tiles} tiles, grid "
+            f"{plan.grid}, {blocks} blocks/SM at {smem} B shared) "
             f"plain_ms={plain_ms:.4f} (row blocks widened, float64 addmm) "
             f"float32_addmm_ms={f32_ms:.4f} {_bound_text(bound, ms)}"
         )
-        if (m, k) == (n, 1):
+        _require(blocks >= cuda_kernels._RESIDUAL_BLOCKS_PER_SM, f"residual_f64 occupancy {blocks}")
+        if wide:
+            # As the landscape calls it: lu_solve's column-major float32
+            # solution, float32 H, the result rounded to float32.
+            x32t, h32 = X.T.float().contiguous().T, H.float()
+            caller_ms = _timed(
+                torch, lambda: cuda_kernels.residual_f64(A, x32t, h32, out_dtype=torch.float32), 3
+            )
+            print(
+                f"phase1 residual_f64 m={m} n={n} k={k} with the landscape's dtypes (column-major "
+                f"float32 X, float32 H and R): kernel_ms={caller_ms:.4f}, "
+                f"{2 * m * n * k / caller_ms / 1e9:.1f} TFLOP/s"
+            )
+            del x32t, h32
+            A64 = A.double()
+            dgemm_ms = _timed(torch, lambda: A64 @ X, 3)
+            print(
+                f"phase1 residual_f64 m={m} n={n} k={k}: torch.mm of a pre-widened float64 A "
+                f"(cuBLAS DGEMM; not the same function: the widening is left out) "
+                f"{dgemm_ms:.4f} ms, {2 * m * n * k / dgemm_ms / 1e9:.1f} TFLOP/s"
+            )
+            del A64
+        if (m, n, k) == (RESIDUAL_N, RESIDUAL_N, 1):
             row = _row(abs_err, ms, plain_ms, bound)
         del A, X, H
         torch.cuda.empty_cache()
@@ -3483,14 +3558,16 @@ def phase_native_solve_film(torch, st, cuda_kernels, device, large, transport, p
     Qw = model.film_data["ring0"].Qw
     n = Qw.shape[0]
     for k in (6, 1):
-        X = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)), device=CARD)
-        zero = torch.zeros_like(X)
-        ms = _timed(torch, lambda: kernels.residual_f64(Qw, X, zero), 10)
+        # As _self_field_batch passes them: the float32 streams' transpose
+        # read in place, no H, the result rounded to float32.
+        G = torch.as_tensor(np.random.default_rng(k).standard_normal((k, n)), dtype=torch.float32,
+                            device=CARD)
+        ms = _timed(torch, lambda: kernels.residual_f64(Qw, G.T, out_dtype=torch.float32), 10)
         print(
             f"phase16 residual_f64 as the dense self-field, n={n} k={k}: kernel_ms={ms:.4f} "
-            f"{_bound_text(_residual_bound(n, n, k), ms)}"
+            f"{_bound_text(_residual_bound(n, n, k, x_size=4, h_size=0, r_size=4), ms)}"
         )
-    del X, zero
+    del G
     for name in device.films:
         info = make_film_info(
             device=device, circulating_currents=model.circulating_currents,

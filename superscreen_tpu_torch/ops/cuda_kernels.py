@@ -13,7 +13,9 @@ raises if the launch failed.  ``LAUNCHES`` counts the launches of each
 kernel.  The pairwise kernels split their source range over blocks; the
 grid arithmetic is done here, from the block geometry each kernel's
 library reports (``sstt_<kernel>_geometry``), so the two sides cannot
-drift.
+drift.  ``residual_f64``'s plan (:func:`residual_plan`: route, persistent
+grid, split-K) is computed here from the constants of its source, whose
+entry point refuses a plan cut for other ones.
 """
 
 import ctypes
@@ -24,6 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
@@ -37,6 +40,11 @@ __all__ = [
     "q_apply",
     "biot_savart_pair",
     "residual_f64",
+    "residual_plan",
+    "residual_occupancy",
+    "ResidualPlan",
+    "RESIDUAL_MMA_MIN_K",
+    "RESIDUAL_MMA_MIN_K_ALIGNED",
 ]
 
 #: Launch counts per kernel; a wrapper adds one each time it launches.
@@ -136,8 +144,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"sstt_{kernel}_geometry")
         fn.argtypes = [ctypes.c_int, i64, ctypes.POINTER(i64), ctypes.POINTER(i64)]
         fn.restype = None
-    lib.sstt_residual_f64.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr]
+    c_int = ctypes.c_int
+    lib.sstt_residual_f64.argtypes = [
+        ptr, ptr, c_int, i64, i64, ptr, c_int, ptr, c_int, i64, i64, i64, c_int,
+        i64, i64, i64, i64, i64, i64, ptr, ptr,
+    ]
     lib.sstt_residual_f64.restype = ctypes.c_int
+    lib.sstt_residual_geometry.argtypes = [
+        c_int, i64, c_int, ctypes.POINTER(i64), ctypes.POINTER(i64),
+    ]
+    lib.sstt_residual_geometry.restype = None
     return lib
 
 
@@ -392,46 +408,233 @@ def biot_savart_pair(
     return out2, out1
 
 
-#: Right-hand-side columns one ``residual_f64`` launch takes.
-_RESIDUAL_COLS = 8
+# residual_f64's geometry, as csrc/residual_f64.cuh fixes it (the C entry
+# point refuses a plan whose rows or tile differ from its own): 256-thread
+# blocks, _RESIDUAL_BLOCKS_PER_SM of them on each SM; the stream route
+# takes 64 rows by k columns per work item and 64 columns of A per stage,
+# the tensor-core route 128 rows by 16, 32 or 64 columns and 32 columns of
+# A per stage.
+_RESIDUAL_BLOCKS_PER_SM = 2
+_RESIDUAL_STREAM = dict(rows=64, tile=64)
+_RESIDUAL_MMA = dict(rows=128, tile=32)
+_RESIDUAL_ROUTES = ("stream", "mma")
+# A work item's ring fills before its first tile is summed and its sums
+# are reduced and stored after its last: about this many tiles' time.
+_RESIDUAL_ITEM_OVERHEAD_TILES = 2
+_RESIDUAL_MAX_SPLITS = 64
+# The bytes of A that the rows of the blocks in flight may span.  Measured
+# on an H100 80GB HBM3 at 700 W (tools/kernel_turns.py's split sweep): at
+# 20,274^2, k = 1, 1,370 MB of rows in flight ran at 56 % of the bound,
+# 685 MB at 66 %, 343 MB at 75 %; at 16,768^2 the span mattered within
+# 2-3 % either way.
+_RESIDUAL_SPAN_BYTES = 600e6
+# Below this k the 4 m n bytes of A take longer than the 2 m n k
+# operations at the FP64 tensor cores' rate (2 x 67e12 / 3.35e12).
+_RESIDUAL_BYTES_BOUND_K = 40
+
+#: Columns of X from which ``residual_f64`` takes the FP64 tensor-core
+#: route (below, the stream route, which the C side instantiates for
+#: these widths only) where the rows of A are not all 16-byte aligned,
+#: and where they are (the stream route's TMA): see :func:`residual_plan`.
+RESIDUAL_MMA_MIN_K = 6
+RESIDUAL_MMA_MIN_K_ALIGNED = 12
 
 
-def residual_f64(A: torch.Tensor, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-    """``R = H + A @ X`` in float64 for a float32 ``A`` ``(m, n)``, float64
-    ``X`` ``(n, k)`` and float32 or float64 ``H`` ``(m, k)``: the products
-    and sums are float64 (widening ``A`` is exact).  Returns ``(m, k)``
-    float64.  Right-hand sides wider than 8 columns take one launch per
-    chunk of 8."""
+@dataclass(frozen=True)
+class ResidualPlan:
+    """How one ``residual_f64`` call cuts its work (:func:`residual_plan`)."""
+
+    route: str          # "stream" or "mma"
+    width: int          # columns of R per work item: k, or 16, 32 or 64
+    rows: int           # rows of A per work item
+    tile: int           # columns of A per shared-memory stage
+    tiles: int          # ceil(n / tile)
+    splits: int         # the tiles cut into this many runs (split-K) ...
+    split_tiles: int    # ... of this many whole tiles each, the last shorter
+    row_blocks: int
+    col_blocks: int
+    grid: int           # blocks of the persistent grid
+
+    @property
+    def items(self) -> int:
+        """Work items: row blocks x column blocks x splits."""
+        return self.row_blocks * self.col_blocks * self.splits
+
+
+def residual_plan(m: int, n: int, k: int, sms: int = 132, aligned: bool = False) -> ResidualPlan:
+    """The route, grid and split-K of one ``residual_f64`` call ``R = H +
+    A X`` with ``A`` ``(m, n)`` and ``k`` columns, on a card of ``sms``
+    SMs; ``aligned``: ``A`` starts at a multiple of 16 bytes and ``n`` is a
+    multiple of 4 (every row 16-byte aligned: the stream route copies ``A``
+    by TMA, otherwise by its cp.async windows).  The C side cuts the work
+    with the same arithmetic.
+
+    The route is the stream route for ``k < RESIDUAL_MMA_MIN_K_ALIGNED``
+    (aligned) or ``k < RESIDUAL_MMA_MIN_K``, and the FP64 tensor-core route
+    from there.  Reckoned: ``A`` takes 4 m n bytes at
+    3.35 TB/s and 2 m n k operations at 67 TFLOP/s, equal at k ~ 40 (k ~ 20
+    against the 33.5 TFLOP/s of the FP64 units the stream route uses), so
+    both routes are bound by the bytes of ``A`` well past the switch.
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W (the two routes in turns,
+    ``tools/kernel_turns.py --kernel residual`` on a build with stream
+    widths to 16): at n = 16,768 (aligned) the stream route is faster up
+    to k = 11 (0.477 against 0.494 ms), the tensor-core route from k = 12
+    (0.464 against 0.480 ms); at n = 16,766 (rows 8 bytes off) the stream
+    route is faster up to k = 4 (0.468 against 0.493 ms), even at 5 (0.5045
+    both) and slower from 6 (0.527 against 0.503 ms).  Past the switch the
+    stream route's instructions per float64 FMA, not its bytes, bound it,
+    and its wider sums spill.  So the C side builds the stream route's TMA
+    copies for ``k < RESIDUAL_MMA_MIN_K_ALIGNED`` and its windows for ``k <
+    RESIDUAL_MMA_MIN_K`` only.
+
+    The grid is persistent: ``sms`` times ``_RESIDUAL_BLOCKS_PER_SM``
+    blocks (fewer if there are fewer work items) walk the work items, a
+    block of rows (and, on the tensor-core route, of columns of R) times
+    one split of the columns of A into whole tiles (the C side numbers the
+    items with the column blocks, then the splits of one row block
+    adjacent); the blocks an SM holds share its bandwidth and tensor
+    cores.  Among the splits that leave no split empty, keep the partial
+    sums (16 bytes each way per split and element of R) under a quarter of
+    A's bytes and give every block slot (every SM from ``k`` = 40, where
+    the operations bound the call) an item where the work allows, it
+    prefers those whose blocks in flight walk rows that span at most
+    ``_RESIDUAL_SPAN_BYTES`` of A (their row blocks are the grid's blocks
+    over the splits and column blocks of each), and among them takes the
+    one whose busiest SM works through the fewest tiles (``ceil(items /
+    sms)`` items, each its tiles plus ``_RESIDUAL_ITEM_OVERHEAD_TILES``),
+    and the fewest splits among equals.
+    """
+    if m < 1 or k < 1 or n < 0:
+        raise ValueError(f"residual_plan needs m, k >= 1 and n >= 0, got {(m, n, k)}.")
+    stream = k < (RESIDUAL_MMA_MIN_K_ALIGNED if aligned else RESIDUAL_MMA_MIN_K)
+    return _route_plan(m, n, k, sms, "stream" if stream else "mma")
+
+
+@functools.lru_cache(maxsize=None)
+def _route_plan(m: int, n: int, k: int, sms: int, route: str) -> ResidualPlan:
+    """:func:`residual_plan` on ``route`` (the tensor-core route takes
+    any ``k``; the stream route the ``k`` that :func:`residual_plan` gives
+    it at the alignment of ``A``)."""
+    if route == "stream":
+        width, geometry = k, _RESIDUAL_STREAM
+    else:
+        width, geometry = (16 if k <= 16 else 32 if k <= 32 else 64), _RESIDUAL_MMA
+    rows, tile = geometry["rows"], geometry["tile"]
+    tiles = -(-n // tile)
+    row_blocks = -(-m // rows)
+    col_blocks = 1 if route == "stream" else -(-k // width)
+    blocks = row_blocks * col_blocks
+    slots = sms * _RESIDUAL_BLOCKS_PER_SM
+    most = max(1, min(_RESIDUAL_MAX_SPLITS, tiles, n // (16 * k)))
+    # Where the bytes of A bound the call, every block slot streams; where
+    # the tensor cores do, every SM computes.
+    least_items = min(slots if k < _RESIDUAL_BYTES_BOUND_K else sms, blocks * most)
+    best_cost, splits, split_tiles = None, 1, max(tiles, 1)
+    for s in range(1, most + 1):
+        length = -(-tiles // s)
+        if (s - 1) * length >= tiles or blocks * s < least_items:  # an empty split; idle SMs
+            continue
+        in_flight = min(row_blocks, -(-min(blocks * s, slots) // (s * col_blocks)))
+        wide = min(m, in_flight * rows) * n * 4 > _RESIDUAL_SPAN_BYTES
+        cost = (wide, -(-blocks * s // sms) * (length + _RESIDUAL_ITEM_OVERHEAD_TILES))
+        if best_cost is None or cost < best_cost:
+            best_cost, splits, split_tiles = cost, s, length
+    return ResidualPlan(
+        route=route, width=width, rows=rows, tile=tile, tiles=tiles, splits=splits,
+        split_tiles=split_tiles, row_blocks=row_blocks, col_blocks=col_blocks,
+        grid=min(blocks * splits, slots),
+    )
+
+
+def residual_occupancy(plan: ResidualPlan, x_dtype: torch.dtype) -> tuple:
+    """``(blocks per SM, dynamic shared bytes)`` of the instantiation that
+    ``plan`` launches for an X of ``x_dtype``, as the occupancy calculator
+    gives them (the plan assumes ``_RESIDUAL_BLOCKS_PER_SM``)."""
+    blocks, smem = ctypes.c_int64(), ctypes.c_int64()
+    load_library().sstt_residual_geometry(
+        _RESIDUAL_ROUTES.index(plan.route), plan.width, int(x_dtype == torch.float64),
+        ctypes.byref(blocks), ctypes.byref(smem),
+    )
+    return blocks.value, smem.value
+
+
+def _rows_aligned(A: torch.Tensor) -> bool:
+    """Whether every row of a row-major ``A`` starts at a multiple of 16
+    bytes (the C side's test for the stream route's TMA copies)."""
+    return A.data_ptr() % 16 == 0 and A.shape[1] % 4 == 0 and A.shape[1] > 0
+
+
+def _column_strides(X: torch.Tensor) -> tuple:
+    """``(row stride, column stride)`` of an ``(n, k)`` X that is
+    row-major or the transpose of a row-major ``(k, n)``."""
+    n, k = X.shape
+    if X.is_contiguous():
+        return k, 1
+    if X.mT.is_contiguous():
+        return 1, n
+    raise ValueError("X must be contiguous or the transpose of a contiguous tensor.")
+
+
+def residual_f64(
+    A: torch.Tensor,
+    X: torch.Tensor,
+    H: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: torch.dtype = torch.float64,
+) -> torch.Tensor:
+    """``R = H + A @ X`` with every product and sum in float64 (widening
+    ``A`` is exact) for a float32 ``A`` ``(m, n)``, a float32 or float64
+    ``X`` ``(n, k)`` (row-major, or the transpose of a row-major
+    ``(k, n)``: ``g.T`` is read in place) and a float32 or float64 ``H``
+    ``(m, k)``, or ``None`` for zero.  Returns ``(m, k)`` in ``out_dtype``:
+    float64, or float32 rounded once from the float64 sum (the bits of
+    ``.to(torch.float32)`` of the float64 result).
+
+    One call reads ``A`` once at any ``k`` and adds exactly 1 to
+    ``LAUNCHES["residual_f64"]``; :func:`residual_plan` picks the route
+    and the split-K.  Where the plan splits the
+    columns of ``A``, the call ends with a second pass over the float64
+    partial sums (a scratch buffer from ``torch.empty``) that adds them in
+    a fixed order: part of the same call, not counted as a launch of its
+    own.  Two calls on the same inputs give the same bits."""
     if A.ndim != 2 or X.ndim != 2:
         raise ValueError(
             f"A must have shape (m, n) and X (n, k), got {tuple(A.shape)} and {tuple(X.shape)}."
         )
     (m, n), k = A.shape, X.shape[1]
     _check("A", A, torch.float32, (m, n))
-    _check("X", X, torch.float64, (n, k))
-    if H.dtype not in _SUPPORTED:
-        raise TypeError(f"H must be float32 or float64, got {H.dtype}.")
-    _check("H", H, H.dtype, (m, k))
-    _same_device("A", A, X=X, H=H)
-    H = H.double()
-    out = torch.empty((m, k), dtype=torch.float64, device=A.device)
+    if X.dtype not in _SUPPORTED:
+        raise TypeError(f"X must be float32 or float64, got {X.dtype}.")
+    if tuple(X.shape) != (n, k):
+        raise ValueError(f"X must have shape {(n, k)}, got {tuple(X.shape)}.")
+    xs_row, xs_col = _column_strides(X)
+    if H is not None:
+        if H.dtype not in _SUPPORTED:
+            raise TypeError(f"H must be float32 or float64, got {H.dtype}.")
+        _check("H", H, H.dtype, (m, k))
+        _same_device("A", A, H=H)
+    if out_dtype not in _SUPPORTED:
+        raise TypeError(f"out_dtype must be float32 or float64, got {out_dtype}.")
+    _same_device("A", A, X=X)
+    out = torch.empty((m, k), dtype=out_dtype, device=A.device)
     if m == 0 or k == 0:
         return out
+    plan = residual_plan(m, n, k, _sm_count(A.device), _rows_aligned(A))
+    partial = (
+        torch.empty((plan.splits, m, k), dtype=torch.float64, device=A.device)
+        if plan.splits > 1 else None
+    )
     with torch.cuda.device(A.device):
         lib = load_library()
         stream = torch.cuda.current_stream().cuda_stream
-        for lo in range(0, k, _RESIDUAL_COLS):
-            if k <= _RESIDUAL_COLS:
-                x, h, r = X, H, out
-            else:
-                cols = slice(lo, lo + _RESIDUAL_COLS)
-                x, h = X[:, cols].contiguous(), H[:, cols].contiguous()
-                r = torch.empty_like(h)
-            code = lib.sstt_residual_f64(
-                A.data_ptr(), x.data_ptr(), h.data_ptr(), m, n, x.shape[1], r.data_ptr(), stream
-            )
-            _raise_on_error("residual_f64", code)
-            LAUNCHES["residual_f64"] += 1
-            if r is not out:
-                out[:, cols] = r
+        code = lib.sstt_residual_f64(
+            A.data_ptr(), X.data_ptr(), int(X.dtype == torch.float64), xs_row, xs_col,
+            None if H is None else H.data_ptr(), int(H is not None and H.dtype == torch.float64),
+            out.data_ptr(), int(out_dtype == torch.float64), m, n, k,
+            _RESIDUAL_ROUTES.index(plan.route), plan.width, plan.rows, plan.tile, plan.grid,
+            plan.splits, plan.split_tiles, None if partial is None else partial.data_ptr(),
+            stream,
+        )
+    _raise_on_error("residual_f64", code)
+    LAUNCHES["residual_f64"] += 1
     return out

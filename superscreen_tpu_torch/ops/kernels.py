@@ -17,6 +17,7 @@ device.
 """
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -512,29 +513,56 @@ def boundary_effective_field(
 
 
 def residual_f64_plain(
-    A: torch.Tensor, X: torch.Tensor, H: torch.Tensor, block: int = _BLOCK
+    A: torch.Tensor,
+    X: torch.Tensor,
+    H: Optional[torch.Tensor] = None,
+    block: int = _BLOCK,
+    *,
+    out_dtype: torch.dtype = torch.float64,
 ) -> torch.Tensor:
     """Plain PyTorch ``R = H + A @ X`` in float64 for a float32 ``A``
-    ``(m, n)``: row blocks of ``A`` are widened on the fly (exactly) and
-    multiplied in float64, so the transient is ``(block, n)``."""
-    R = torch.empty(H.shape, dtype=torch.float64, device=H.device)
+    ``(m, n)``, a float32 or float64 ``X`` ``(n, k)`` (widened once) and a
+    float32 or float64 ``H`` ``(m, k)`` or ``None`` (zero): row blocks of
+    ``A`` are widened on the fly (exactly) and multiplied in float64, so
+    the transient is ``(block, n)``.  Returns ``out_dtype``: float64, or the
+    float64 result rounded once (``.to``)."""
+    X = X.double()
+    R = torch.empty((A.shape[0], X.shape[1]), dtype=torch.float64, device=A.device)
     for lo in range(0, A.shape[0], block):
         rows = slice(lo, lo + block)
-        R[rows] = torch.addmm(H[rows].double(), A[rows].double(), X)
-    return R
+        if H is None:
+            R[rows] = torch.mm(A[rows].double(), X)
+        else:
+            R[rows] = torch.addmm(H[rows].double(), A[rows].double(), X)
+    return R if out_dtype == torch.float64 else R.to(out_dtype)
 
 
-def residual_f64(A: torch.Tensor, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+def residual_f64(
+    A: torch.Tensor,
+    X: torch.Tensor,
+    H: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: torch.dtype = torch.float64,
+) -> torch.Tensor:
     """The float64 residual ``R = H + A @ X`` of a system stored in
     float32: ``A`` ``(m, n)`` float32 (a film's square system, or the rows
-    of a rectangular block), ``X`` ``(n, k)`` float64, ``H`` ``(m, k)``
-    float32 or float64.  Every product and sum is float64, and widening
-    ``A`` is exact, so this is the residual a float64 copy of ``A`` would
-    give, at the cost of reading the float32 one once.
+    of a rectangular block), ``X`` ``(n, k)`` float32 or float64, ``H``
+    ``(m, k)`` float32 or float64, or ``None`` for zero.  Every product and
+    sum is float64, and widening ``A`` is exact, so this is the residual a
+    float64 copy of ``A`` would give, at the cost of reading the float32
+    one once.  The callers pass their tensors as they are: on the card the
+    kernel reads either dtype, an ``X`` that is the transpose of a
+    contiguous tensor, and rounds once to ``out_dtype``, so nothing is
+    launched around it.
 
     Returns:
-        ``(m, k)`` float64, on the tensors' device.
+        ``(m, k)`` in ``out_dtype`` (float64 or float32), on the tensors'
+        device.
     """
     if _uses_kernel(A):
-        return cuda_kernels.residual_f64(A.contiguous(), X.contiguous(), H.contiguous())
-    return residual_f64_plain(A, X, H)
+        if not (X.is_contiguous() or X.mT.is_contiguous()):
+            X = X.contiguous()
+        return cuda_kernels.residual_f64(
+            A.contiguous(), X, None if H is None else H.contiguous(), out_dtype=out_dtype
+        )
+    return residual_f64_plain(A, X, H, out_dtype=out_dtype)

@@ -112,11 +112,12 @@ def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.
     against the residual itself: refinement on it stalls near 1e-4 of the
     streams, or follows the product's noise.  The residual of a float32
     system is therefore formed in float64 for any number of columns, by
-    :func:`ops.kernels.residual_f64`, which reads the float32 ``A`` once.
+    :func:`ops.kernels.residual_f64`, which reads the float32 ``A`` once,
+    takes ``x`` and ``h`` as they are and rounds once to ``h``'s dtype.
     """
     if A.dtype != torch.float32:
         return h + A @ x
-    return kernels.residual_f64(A, x.double(), h).to(h.dtype)
+    return kernels.residual_f64(A, x, h, out_dtype=h.dtype)
 
 
 def mixed_preconditioner(

@@ -811,11 +811,9 @@ def solve_film(
         # sums its self-field: the terms cancel to a small part of their sum).
         wg = (weights * g)[:, None]
         if film_info.kernel.dtype == torch.float32:
-            wg = wg.double()
-            screening_field = kernels.residual_f64(film_info.kernel, wg, torch.zeros_like(wg))
+            screening_field = kernels.residual_f64(film_info.kernel, wg, out_dtype=dtype)[:, 0]
         else:
-            screening_field = film_info.kernel @ wg
-        screening_field = screening_field[:, 0].to(dtype)
+            screening_field = (film_info.kernel @ wg)[:, 0].to(dtype)
     else:
         screening_field = kernels.Q_apply(sites, weights, weights * g)
 

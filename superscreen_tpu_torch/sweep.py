@@ -334,7 +334,7 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     for float32 streams too: the diagonal and the off-diagonal terms
     cancel to a small part of their sum, so a float32 product of ~20,000
     terms leaves errors of ~1e-4 of the self-field (``chip_smoke.py``
-    phase 16); the result comes back in the streams' dtype."""
+    phase 16); the kernel rounds the result once to the streams' dtype."""
     if g.dtype != data.weights.dtype:
         data = _widened(data, g.dtype)
     if data.terminal:
@@ -349,8 +349,11 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     if data.Qw is None:
         return kernels.Q_apply(data.sites, data.weights, (data.weights[None, :] * g).T).T
     if data.Qw.dtype == torch.float32:
-        gT = g.T.double().contiguous()
-        return kernels.residual_f64(data.Qw, gT, torch.zeros_like(gT)).T.to(g.dtype)
+        # The kernel reads g^T in place; the CPU route multiplies a
+        # row-major copy, as it always has (its BLAS sums a transposed
+        # operand in another order).
+        gT = g.T if g.is_cuda else g.T.contiguous()
+        return kernels.residual_f64(data.Qw, gT, out_dtype=g.dtype).T
     return (data.Qw @ g.T).T
 
 

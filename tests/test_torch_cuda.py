@@ -614,45 +614,147 @@ def test_mutual_inductance_on_the_card_matches_cpu_float64(cuda):
     assert abs(fluxoids["big_hole"] - 1) < 1e-3 and abs(fluxoids["small_hole"]) < 1e-3
 
 
-# Rows on both sides of a block of 32, columns on both sides of a tile of
-# 128 (and an odd row length, so that no row start is aligned).
-RESIDUAL_EDGES = [(1, 1), (31, 127), (32, 128), (33, 129), (257, 1001), (1000, 643)]
+# Rows on both sides of a stream work item (64 rows) and a tensor-core one
+# (128), columns on both sides of a stage (32 and 64 columns), and odd row
+# lengths, so that no row start but every fourth is 16-byte aligned; and
+# rows a multiple of 16 bytes long (n = 128, 1000), whose whole tiles of A
+# the stream route copies by cp.async.bulk, 1000 with a cut last tile.
+RESIDUAL_EDGES = [
+    (1, 1), (31, 127), (64, 128), (129, 129), (257, 1001), (1000, 643), (300, 1000),
+]
+# Columns of X on both sides of each stream width, the route switches (6
+# where rows are not all aligned, 12 where they are) and the tensor-core
+# widths (16, 32, 64), and a landscape block.
+RESIDUAL_COLUMNS = [1, 2, 3, 5, 6, 8, 9, 11, 12, 16, 17, 33, 64, 100, 2048]
+# (X dtype, H dtype or None, R dtype, X given as the transpose of a
+# contiguous (k, n)).
+RESIDUAL_DTYPES = [
+    (torch.float64, torch.float64, torch.float64, False),
+    (torch.float64, torch.float32, torch.float64, True),
+    (torch.float32, torch.float32, torch.float32, False),
+    (torch.float32, None, torch.float64, True),
+    (torch.float64, None, torch.float32, False),
+]
 
 
-@pytest.mark.parametrize("h_dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", CHUNK_EDGES)
-@pytest.mark.parametrize("m,n", RESIDUAL_EDGES)
-def test_residual_f64_kernel_matches_plain(cuda, m, n, k, h_dtype):
-    rng = np.random.default_rng(1000 * m + k)
+def _residual_inputs(rng, m, n, k, x_dtype, h_dtype, transposed, cuda):
     A = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda)
-    X = torch.as_tensor(rng.standard_normal((n, k)), device=cuda)
-    H = torch.as_tensor(rng.standard_normal((m, k)), dtype=h_dtype, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((k, n) if transposed else (n, k)), dtype=x_dtype,
+                        device=cuda)
+    X = X.T if transposed else X
+    H = None if h_dtype is None else torch.as_tensor(
+        rng.standard_normal((m, k)), dtype=h_dtype, device=cuda
+    )
+    return A, X, H
+
+
+@pytest.mark.parametrize("dtypes", RESIDUAL_DTYPES)
+@pytest.mark.parametrize("k", RESIDUAL_COLUMNS)
+@pytest.mark.parametrize("m,n", RESIDUAL_EDGES)
+def test_residual_f64_kernel_matches_plain(cuda, m, n, k, dtypes):
+    x_dtype, h_dtype, out_dtype, transposed = dtypes
+    A, X, H = _residual_inputs(np.random.default_rng(1000 * m + k), m, n, k, x_dtype, h_dtype,
+                               transposed, cuda)
     before = cuda_kernels.LAUNCHES["residual_f64"]
-    out = kernels.residual_f64(A, X, H)
+    out = kernels.residual_f64(A, X, H, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["residual_f64"] == before + -(-k // 8)
-    assert out.shape == (m, k) and out.dtype == torch.float64
+    assert cuda_kernels.LAUNCHES["residual_f64"] == before + 1
+    assert out.shape == (m, k) and out.dtype == out_dtype
+    exact = kernels.residual_f64(A, X, H)
+    # The float32 result is the float64 sum rounded once.
+    assert torch.equal(out, exact.to(out_dtype))
     # float64 sums of exact products in another order.
+    assert _rel_err(exact, kernels.residual_f64_plain(A, X, H)) <= TOL[torch.float64]
+    assert torch.equal(out, kernels.residual_f64(A, X, H, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("route", ["stream", "mma"])
+@pytest.mark.parametrize("n,k", [(2050, 1), (2050, 3), (2050, 5), (2048, 1), (2048, 5),
+                                 (2048, 8), (2048, 11)])
+def test_residual_f64_routes_match_plain(cuda, monkeypatch, route, k, n):
+    """Both routes at the widths where either may be chosen (the plan
+    replaced by the other route's), on a rectangular block whose rows are
+    8 mod 16 bytes apart (the stream route's windows, k <= 5) or aligned
+    (its TMA, k <= 11)."""
+    m = 700
+    A, X, H = _residual_inputs(np.random.default_rng(k), m, n, k, torch.float64, torch.float64,
+                               False, cuda)
+    monkeypatch.setattr(cuda_kernels, "residual_plan",
+                        lambda m, n, k, sms=132, aligned=False: cuda_kernels._route_plan(
+                            m, n, k, sms, route))
+    out = cuda_kernels.residual_f64(A, X, H)
     assert _rel_err(out, kernels.residual_f64_plain(A, X, H)) <= TOL[torch.float64]
-    assert torch.equal(out, kernels.residual_f64(A, X, H))
+    assert torch.equal(out, cuda_kernels.residual_f64(A, X, H))
 
 
-def test_residual_f64_takes_a_row_block_and_refuses_bad_input(cuda):
+@pytest.mark.parametrize("n", [201, 200])
+@pytest.mark.parametrize("k", [3, 64])
+def test_residual_f64_takes_a_row_block_and_refuses_bad_input(cuda, k, n):
     rng = np.random.default_rng(5)
-    A = torch.as_tensor(rng.standard_normal((300, 200)), dtype=torch.float32, device=cuda)
-    X = torch.as_tensor(rng.standard_normal((200, 3)), device=cuda)
-    H = torch.zeros((300, 3), dtype=torch.float64, device=cuda)
+    # n = 201: rows start 4 bytes apart mod 16, and the views below start
+    # at every alignment.  n = 200: every row of A is aligned (the stream
+    # route's cp.async.bulk), and the copies of A below start 0-3 floats
+    # past a 16-byte boundary (its windows).
+    A = torch.as_tensor(rng.standard_normal((300, n)), dtype=torch.float32, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((n, k)), device=cuda)
+    H = torch.zeros((300, k), dtype=torch.float64, device=cuda)
     full = kernels.residual_f64(A, X, H)
-    rows = kernels.residual_f64(A[40:170], X, H[40:170])
-    assert torch.equal(rows, full[40:170])
+    for lo in (40, 41, 42, 43):
+        rows = kernels.residual_f64(A[lo:170], X, H[lo:170])
+        assert torch.equal(rows, full[lo:170])
+        exact = kernels.residual_f64_plain(A[lo:170], X, H[lo:170])
+        assert _rel_err(rows, exact) <= TOL[torch.float64]
+    flat = torch.empty(A.numel() + 3, dtype=torch.float32, device=cuda)
+    for offset in (0, 1, 2, 3):
+        moved = flat[offset:offset + A.numel()].view(A.shape)
+        moved.copy_(A)
+        assert torch.equal(kernels.residual_f64(moved, X, H), full)
     with pytest.raises(TypeError):
         cuda_kernels.residual_f64(A.double(), X, H)
     with pytest.raises(TypeError):
-        cuda_kernels.residual_f64(A, X.float(), H)
+        cuda_kernels.residual_f64(A, X.half(), H)
+    with pytest.raises(TypeError):
+        cuda_kernels.residual_f64(A, X, H, out_dtype=torch.float16)
     with pytest.raises(ValueError):
         cuda_kernels.residual_f64(A, X[:-1], H)
+    with pytest.raises(ValueError):  # neither X nor X.T contiguous
+        cuda_kernels.residual_f64(A, torch.zeros_like(X).repeat(1, 2)[:, ::2], H)
     with pytest.raises(ValueError):
         cuda_kernels.residual_f64(A.cpu(), X, H)
+
+
+def test_residual_f64_callers_launch_only_the_kernel(cuda):
+    """``system_residual`` and the sweep's dense self-field pass their
+    tensors as they are: the card runs residual_f64's kernels and nothing
+    else (no casts, no zeros, no copies)."""
+    from types import SimpleNamespace
+
+    from superscreen_tpu_torch import sweep
+    from superscreen_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(8)
+    n, B = 3001, 6
+    A = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=cuda).T
+    h = torch.as_tensor(rng.standard_normal((n, B)), dtype=torch.float32, device=cuda)
+    weights = torch.ones(n, dtype=torch.float32, device=cuda)
+    data = SimpleNamespace(weights=weights, terminal=False, brandt_diag=None, Qw=A)
+    g = x.T
+    calls = {
+        "system_residual": lambda: linalg.system_residual(A, h, x),
+        "_self_field_batch": lambda: sweep._self_field_batch(data, g),
+    }
+    for label, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        before = cuda_kernels.LAUNCHES["residual_f64"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert cuda_kernels.LAUNCHES["residual_f64"] == before + 1, label
+        assert names and all("residual" in name for name in names), (label, names)
+        assert out.dtype == torch.float32, label
 
 
 def test_system_residual_on_the_card_is_float64_from_one_column(cuda):

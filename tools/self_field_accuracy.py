@@ -73,12 +73,11 @@ def main() -> int:
         g = G[-1]
         exact = Q.double() @ (w.double() * g.double())
         scale = float(exact.abs().max())
-        X = g[:, None].double()
         routes = {
             "Qw @ G (six columns)": (Qw @ G.T).T[-1],
             "Qw @ g": (Qw @ g[:, None])[:, 0],
             "Q @ (w g)": Q @ (w * g),
-            "residual_f64": kernels.residual_f64(Qw, X, torch.zeros_like(X))[:, 0],
+            "residual_f64": kernels.residual_f64(Qw, g[:, None])[:, 0],
             "solve()": torch.as_tensor(
                 solutions[-1].film_solutions[name].self_field, device=where
             ).double() * conv,
