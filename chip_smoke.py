@@ -177,6 +177,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    printed); and one with ``hp_system`` against a float64 ``solve()`` on
    the card within 1e-8.  Launches and CUDA-event milliseconds per call;
    phase 9's post-processing times on both ring-test routes.
+17. The multi-device layer (``superscreen_tpu_torch.parallel``) on a mesh
+   of distinct cards where the machine has several, else of ``cuda:0``
+   repeated (every split, per-shard launch, gather and row-sharded product
+   runs; only copies between cards do not): ``solve_many(sharding=...)``
+   over two data rows on phase 7's sweep (streams within 1e-5 of phase
+   7's, residuals at most 1e-4, twice the unsharded sweep's launches,
+   wall times in turns); ``sharded_film_data`` on a 2 x 2 mesh of phase
+   2's dense stack (``_run_sweep`` within 1e-5 of the unsharded one,
+   padded sites exactly 0, each ``Qw`` block's ``residual_f64`` route);
+   ``sharded_biot_savart`` and ``sharded_self_field`` at the 27k stack's
+   shapes, B = 8, on 2 x 2 (within 1e-6 and 1e-5 of the unsharded
+   kernels, one launch per block; each beside a float64 evaluation); ``sharded_spd_inverse("schur")`` of one low-memory
+   film over two slots (``(-A)(M h) = h`` within 1e-3 before refinement;
+   its time and the largest tensor a slot held); a factorization mesh of
+   two slots with ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N`` at 0.8 x the
+   smallest interior of phase 4's stack (every film ``"inv"``, ``A`` and
+   ``M`` in row blocks, ``solve()`` within 1e-4 of phase 4's); and config
+   5 over two data rows against phase 13's scan (1e-5).
 
 Phases 2-11, 15 and 16 hold ``coupling="auto"`` to the exact pairwise coupling
 (SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
@@ -849,9 +867,9 @@ def _check_residuals(torch, model, solution, label, limit=RESIDUAL_MAX):
         res = float(
             relative_residual(
                 data,
-                torch.as_tensor(Hz[None], dtype=dtype, device="cuda"),
-                torch.as_tensor(I_circ, dtype=dtype, device="cuda"),
-                torch.as_tensor(fs.stream[None], dtype=dtype, device="cuda"),
+                torch.as_tensor(Hz[None], dtype=dtype, device=CARD),
+                torch.as_tensor(I_circ, dtype=dtype, device=CARD),
+                torch.as_tensor(fs.stream[None], dtype=dtype, device=CARD),
             )[0]
         )
         print(f"{label} {name}: final relative residual {res:.3e} (limit {limit})")
@@ -2840,7 +2858,7 @@ def phase_scanning(torch, st, kernels, cuda_kernels):
     )
     _require(ls_err <= LANDSCAPE_TOL, f"landscape self-energy {ls_err:.3e}")
     _require(bool(np.all(np.isfinite(landscape.total(1.0)))), "landscape")
-    context = dict(sample=sample, positions=positions,
+    context = dict(sample=sample, positions=positions, M=M,
                    squid_solution={"float32": squid_solution, "float64": squid64_solution})
     return launches, context
 
@@ -3656,6 +3674,279 @@ def phase_native_solve_film(torch, st, cuda_kernels, device, large, transport, p
     return totals
 
 
+
+# Phase 17, the multi-device layer.  Sharded against unsharded float32
+# results: the same sums split into other shapes (trsm at B / 2 columns,
+# the pairwise kernels' source splits at half the rows), so they differ in
+# the last bits; 1e-5 of max|g| is the sweep's stream bar class (phase 6's
+# pair kernel).  The sharded coupling launches the unsharded kernel's
+# arithmetic on each block (1e-6); the sharded self-field sums B / 2
+# columns per block and its row sums q @ w in a launch of their own, where
+# Q_apply sums B + 1 columns with the row sums among them, so the float32
+# sums of ~27,000 terms run in other orders (4.6e-6 of max|q (w g)| on an
+# NVIDIA H100 80GB HBM3 at 700 W): held at the kernels' own float32
+# tolerance, TOL, and each printed beside its distance to a float64
+# evaluation.
+PARALLEL_STREAM_REL_MAX = 1e-5
+SHARDED_KERNEL_REL_MAX = 1e-6
+# (-A)(M h) = h before refinement: a float32 explicit inverse of a system
+# of condition ~1e3-1e4 (ROADMAP), after its one Schulz correction.
+INVERSE_RESIDUAL_MAX = 1e-3
+SHARDED_SCAN_MAX = 1e-5
+
+
+def _mesh_devices(torch, k):
+    """``k`` mesh slots: the cards in turn where there are several, else
+    ``cuda:0`` repeated."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(k)]
+
+
+@contextlib.contextmanager
+def _slot_tensors(rows):
+    """Records the bytes of every tensor that reaches a model slot
+    (``rows._send``) and of every operand and result of a panel product
+    (``rows._panel_matmul``) inside the block: the list it yields."""
+    seen = []
+    send, panel = rows._send, rows._panel_matmul
+
+    def recorded_send(t, device):
+        seen.append(t.numel() * t.element_size())
+        return send(t, device)
+
+    def recorded_panel(left, right):
+        out = panel(left, right)
+        seen.extend(t.numel() * t.element_size() for t in (left, out, *right.blocks))
+        return out
+
+    rows._send, rows._panel_matmul = recorded_send, recorded_panel
+    try:
+        yield seen
+    finally:
+        rows._send, rows._panel_matmul = send, panel
+
+
+def phase_parallel(torch, st, kernels, cuda_kernels, dense_device, large_device, sweep_ref,
+                   lu_solutions, scan):
+    """Phase 17: ``superscreen_tpu_torch.parallel`` on the card, on a mesh
+    of distinct cards where there are several, else of ``cuda:0``
+    repeated (every split, per-shard launch, gather and row-sharded
+    product runs; only copies between cards do not)."""
+    from superscreen_tpu_torch import parallel
+    from superscreen_tpu_torch.ops import linalg
+    from superscreen_tpu_torch.parallel import rows
+    from superscreen_tpu_torch.solver.utils import field_conversion_factor
+    from superscreen_tpu_torch.squids import scanning
+    from superscreen_tpu_torch.sweep import _run_sweep, vortex_flux_quantum
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    print(
+        "phase17 mesh slots: "
+        + (f"{count} distinct cards in turn" if count > 1 else
+           "cuda:0 repeated (one card: the copies between cards do not run)")
+    )
+    drive = dict(current_units="uA", circulating_currents={"hole0": "1 mA"}, torch_device=CARD)
+    films = list(large_device.films)
+
+    # 1. solve_many over two data rows on phase 7's sweep.
+    model = st.factorize_model(device=large_device, **drive)
+    kwargs = dict(model=model, applied_fields=[st.sources.ConstantField(v) for v in SWEEP_FIELDS],
+                  iterations=ITERATIONS)
+    sharding = parallel.batch_sharding(parallel.make_mesh(n_data=2, devices=_mesh_devices(torch, 2)))
+    _reset_launches(cuda_kernels)
+    _sweep(torch, st, **kwargs)
+    plain_launches = dict(cuda_kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(cuda_kernels)
+    sharded, _ = _sweep(torch, st, sharding=sharding, **kwargs)
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err = max(
+        float(np.abs(sharded.streams[n] - sweep_ref["streams"][n]).max()
+              / np.abs(sweep_ref["streams"][n]).max())
+        for n in films
+    )
+    times = {"sharded": [], "unsharded": []}
+    for mode in ("sharded", "unsharded", "unsharded", "sharded"):
+        extra = dict(sharding=sharding) if mode == "sharded" else {}
+        times[mode].append(_sweep(torch, st, **kwargs, **extra)[1])
+    print(
+        f"phase17 solve_many(sharding=2 data rows), B={len(SWEEP_FIELDS)}, {ITERATIONS} rounds: "
+        f"streams against phase 7's {err:.3e} of max|g| (limit {PARALLEL_STREAM_REL_MAX:.0e}); "
+        f"launches {launches} (unsharded {plain_launches}); peak {peak_gb:.3f} GB; wall in turns "
+        f"sharded {[round(t, 4) for t in times['sharded']]} s, unsharded "
+        f"{[round(t, 4) for t in times['unsharded']]} s"
+    )
+    _require(err <= PARALLEL_STREAM_REL_MAX, f"sharded sweep {err:.3e}")
+    _require(all(launches[k] == 2 * plain_launches[k] for k in launches), (launches, plain_launches))
+    _check_sweep_residuals(torch, model, sharded, "phase17 sharded sweep")
+
+    # 2. sharded_film_data on a 2 x 2 mesh of phase 2's dense stack.
+    mesh22 = parallel.make_mesh(n_data=2, n_model=2, devices=_mesh_devices(torch, 4))
+    dense = st.factorize_model(device=dense_device, **drive)
+    data = dense.film_data
+    B = len(SWEEP_FIELDS)
+    conv = field_conversion_factor("mT", "uA", length_units=dense_device.length_units,
+                                   ureg=dense_device.ureg).magnitude
+    Hz = {n: torch.as_tensor(np.outer(SWEEP_FIELDS, np.ones(d.n)) * conv, dtype=torch.float32,
+                             device=CARD) for n, d in data.items()}
+    Ic = {n: torch.tensor([[dense.circulating_currents.get(h, 0.0) for h in d.hole_names]] * B,
+                          dtype=torch.float32, device=CARD) for n, d in data.items()}
+    flux = vortex_flux_quantum(dense_device, "uA")
+    ref, ref_s = _wall(torch, lambda: _run_sweep(data, Hz, Ic, flux, ITERATIONS, 2, "exact"))
+    placed = parallel.sharded_film_data(data, mesh22)
+    Hs, Is = parallel.shard_sweep_inputs(Hz, Ic, mesh22, film_data=placed)
+    _reset_launches(cuda_kernels)
+    out, out_s = _wall(torch, lambda: _run_sweep(placed, Hs, Is, flux, ITERATIONS, 2, "exact"))
+    launches = dict(cuda_kernels.LAUNCHES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in films:
+        n_sites, Qw = data[n].n, placed[n].Qw
+        err = float((out[0][n][:, :n_sites] - ref[0][n]).abs().max() / ref[0][n].abs().max())
+        pads = out[0][n][:, n_sites:]
+        routes = [
+            cuda_kernels.residual_plan(b.shape[0], b.shape[1], B // 2, sms,
+                                       cuda_kernels._rows_aligned(b)).route
+            + (" (TMA)" if cuda_kernels._rows_aligned(b) else " (cp.async windows)")
+            for b in Qw.blocks
+        ]
+        print(
+            f"phase17 sharded_film_data 2x2 {n}: {n_sites} sites padded to {Qw.shape[0]}, Qw "
+            f"blocks of {[b.shape[0] for b in Qw.blocks]} rows, residual_f64 routes {routes}; "
+            f"streams against the unsharded _run_sweep {err:.3e} (limit "
+            f"{PARALLEL_STREAM_REL_MAX:.0e}); padded sites exactly 0: {bool((pads == 0).all())}"
+        )
+        _require(err <= PARALLEL_STREAM_REL_MAX, f"sharded film data {n} {err:.3e}")
+        _require(bool((pads == 0).all()), f"padded sites of {n}")
+    print(f"phase17 sharded _run_sweep launches {launches}; wall {out_s:.4f} s, unsharded {ref_s:.4f} s")
+    del placed, Hs, Is, out, ref, dense, data
+
+    # 3. The sharded coupling and self-field at the 27k stack's shapes.
+    f32 = dict(dtype=torch.float32, device=CARD)
+    m0, m1 = large_device.meshes["ring0"], large_device.meshes["ring1"]
+    src, dst = torch.as_tensor(m0.sites, **f32), torch.as_tensor(m1.sites, **f32)
+    areas = torch.as_tensor(m0.vertex_areas, **f32)
+    J = torch.as_tensor(sweep_ref["current_densities"]["ring0"], **f32)
+    plain = kernels.biot_savart_film_to_film_dz2(src, areas, J, dst, 0.25)
+    _reset_launches(cuda_kernels)
+    split = parallel.sharded_biot_savart(mesh22, src, areas, J, dst, 0.25)
+    bs_launches = cuda_kernels.LAUNCHES["biot_savart_batch"]
+    err = float((split - plain).abs().max() / plain.abs().max())
+    exact = kernels.biot_savart_film_to_film_dz2(src.double(), areas.double(), J.double(),
+                                                 dst.double(), 0.25)
+    to_f64 = float((split.double() - exact).abs().max() / exact.abs().max())
+    ms = _timed(torch, lambda: parallel.sharded_biot_savart(mesh22, src, areas, J, dst, 0.25), 5)
+    plain_ms = _timed(torch, lambda: kernels.biot_savart_film_to_film_dz2(src, areas, J, dst, 0.25), 5)
+    print(
+        f"phase17 sharded_biot_savart 2x2 {src.shape[0]} -> {dst.shape[0]} sites, B={J.shape[0]}: "
+        f"against the unsharded kernel {err:.3e} (limit {SHARDED_KERNEL_REL_MAX:.0e}; "
+        f"{to_f64:.3e} from a float64 evaluation); launches "
+        f"{bs_launches} (blocks 4); {ms:.4f} ms sharded, {plain_ms:.4f} ms unsharded"
+    )
+    _require(err <= SHARDED_KERNEL_REL_MAX and bs_launches == 4, f"sharded coupling {err:.3e}")
+    w = areas
+    g = torch.as_tensor(sweep_ref["streams"]["ring0"], **f32)
+    off = kernels.q_apply(src, (w[None, :] * g).T).T
+    plain = kernels.Q_apply(src, w, (w[None, :] * g).T).T
+    _reset_launches(cuda_kernels)
+    diag = parallel.self_field_diagonal(mesh22, src, w)
+    diag_launches = cuda_kernels.LAUNCHES["q_apply"]
+    _reset_launches(cuda_kernels)
+    split = parallel.sharded_self_field(mesh22, src, w, g, diag=diag)
+    sf_launches = cuda_kernels.LAUNCHES["q_apply"]
+    err = float((split - plain).abs().max() / off.abs().max())
+    w64, g64 = w.double(), g.double()
+    exact = kernels.Q_apply(src.double(), w64, (w64[None, :] * g64).T).T
+    to_f64 = [float((t.double() - exact).abs().max() / off.abs().max()) for t in (split, plain)]
+    ms = _timed(torch, lambda: parallel.sharded_self_field(mesh22, src, w, g, diag=diag), 5)
+    plain_ms = _timed(torch, lambda: kernels.Q_apply(src, w, (w[None, :] * g).T), 5)
+    print(
+        f"phase17 sharded_self_field 2x2 {src.shape[0]} sites, B={g.shape[0]}: against the "
+        f"unsharded Q_apply {err:.3e} of max|q (w g)| (limit {TOL['float32']:.0e}; "
+        f"{float((split - plain).abs().max() / plain.abs().max()):.3e} of max|self-field|); "
+        f"against a float64 evaluation {to_f64[0]:.3e} sharded, {to_f64[1]:.3e} unsharded; "
+        f"q_apply launches {sf_launches} (blocks 4) + {diag_launches} for the diagonal (slots 2); "
+        f"{ms:.4f} ms sharded, {plain_ms:.4f} ms unsharded (k = B + 1)"
+    )
+    _require(err <= TOL["float32"], f"sharded self-field {err:.3e}")
+    _require(sf_launches == 4 and diag_launches == 2, (sf_launches, diag_launches))
+
+    # 4. The sharded explicit inverse of one low-memory film.
+    mesh12 = parallel.make_mesh(n_data=1, n_model=2, devices=_mesh_devices(torch, 2))
+    system = model.film_systems["ring0"]
+    A = system.A
+    ni = A.shape[0]
+    w_col = model.film_info["ring0"].weights[torch.as_tensor(system.indices, device=CARD)]
+    neg_A = -A
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _slot_tensors(rows) as held:
+        M, inv_s = _wall(torch, lambda: parallel.sharded_spd_inverse(mesh12, neg_A, w_col, "schur"))
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del neg_A
+    h = torch.as_tensor(np.random.default_rng(17).standard_normal((ni, 1)), **f32)
+    x = M @ h
+    rel = float(torch.linalg.vector_norm(linalg.system_residual(A, h.double(), x))
+                / torch.linalg.vector_norm(h.double()))
+    x2 = linalg.refine_safeguarded(lambda rhs: M @ rhs, A, h, x, 2)
+    rel2 = float(torch.linalg.vector_norm(linalg.system_residual(A, h.double(), x2))
+                 / torch.linalg.vector_norm(h.double()))
+    print(
+        f"phase17 sharded_spd_inverse('schur') of ring0 (ni={ni}) over 2 slots: {inv_s:.3f} s; "
+        f"relative residual of (-A)(M h) = h {rel:.3e} (limit {INVERSE_RESIDUAL_MAX:.0e}), "
+        f"{rel2:.3e} after 2 refinement steps; largest tensor a slot held {max(held) / 1e6:.1f} MB "
+        f"(a slot's rows: {M.blocks[0].numel() * 4 / 1e6:.1f} MB; the whole matrix "
+        f"{ni * ni * 4 / 1e6:.1f} MB); peak above the inputs {peak_gb:.3f} GB"
+    )
+    _require(rel <= INVERSE_RESIDUAL_MAX, f"sharded inverse residual {rel:.3e}")
+    _require(max(held) <= M.blocks[0].numel() * 4, "a slot held more than its rows")
+    del M, x, x2
+
+    # 5. Dense dispatch past the single-device ceiling (the low-memory
+    # branch, where the JAX package's ceiling applies).
+    nis = {n: len(model.film_systems[n].indices) for n in films}
+    ceiling = int(0.8 * min(nis.values()))
+    with _environ(SUPERSCREEN_TPU_MAX_MATERIALIZED_N=str(ceiling)):
+        parallel.set_factorization_mesh(mesh12)
+        try:
+            _reset_launches(cuda_kernels)
+            inv_model, factor_s = _wall(torch, lambda: st.factorize_model(device=large_device, **drive))
+            factor_launches = dict(cuda_kernels.LAUNCHES)
+        finally:
+            parallel.set_factorization_mesh(None)
+    for n in films:
+        sys_n = inv_model.film_systems[n]
+        _require(sys_n.lu_piv[0] == "inv" and inv_model.film_data[n].fac_kind == "inv", n)
+        _require(isinstance(sys_n.A, rows.RowSharded) and len(sys_n.A.blocks) == 2, n)
+        _require(isinstance(sys_n.lu_piv[1], rows.RowSharded) and len(sys_n.lu_piv[1].blocks) == 2, n)
+    _require(factor_launches["q_matrix"] == 2 * len(films), factor_launches)
+    solutions, solve_s = _solve(torch, st, inv_model)
+    err = _stream_error(solutions, lu_solutions)
+    print(
+        f"phase17 factorization mesh 1x2, SUPERSCREEN_TPU_MAX_MATERIALIZED_N={ceiling} (0.8 x the "
+        f"smallest ni of {nis}): every film 'inv', A and M in 2 row blocks; factorize "
+        f"{factor_s:.3f} s, launches {factor_launches}; solve() {solve_s:.3f} s, streams against "
+        f"phase 4's LU solve {err:.3e} of max|g| (limit {STREAM_REL_MAX:.0e})"
+    )
+    _require(err <= STREAM_REL_MAX, f"inv solve {err:.3e}")
+    _check_residuals(torch, inv_model, solutions[-1], "phase17 inv")
+    del inv_model, solutions, model
+
+    # 6. Config 5 over two data rows against phase 13's scan.
+    M_scan, scan_s = _wall(torch, lambda: scanning.susceptibility_scan(
+        scan["sample"], squid_solution=scan["squid_solution"], positions=scan["positions"],
+        squid_height=1.0, pickup_loop="pl", I_fc="1 mA", sharding=sharding, torch_device=CARD))
+    err = float(np.abs(M_scan - scan["M"]).max() / np.abs(scan["M"]).max())
+    print(
+        f"phase17 config-5 scan over 2 data rows (B={len(scan['M'])}): {scan_s:.3f} s with its "
+        f"factorization; against phase 13's {err:.3e} (limit {SHARDED_SCAN_MAX:.0e})"
+    )
+    _require(err <= SHARDED_SCAN_MAX, f"sharded scan {err:.3e}")
+    print(f"phase17 wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3698,6 +3989,7 @@ def main() -> int:
         )
         certify_launches = phase_certify(torch, st, cuda_kernels, model, large)
     fft_launches, auto_wrong = phase_fft(torch, st, cuda_kernels, model, exact_sweep)
+    sweep_ref = dict(streams=exact_sweep.streams, current_densities=exact_sweep.current_densities)
     del model, exact_sweep
     with _exact_coupling():
         phase_cg(torch, st, cuda_kernels, large, lu_solutions)
@@ -3707,6 +3999,7 @@ def main() -> int:
     adjoint_fwd, adjoint_bwd = phase_adjoint(
         torch, st, kernels, cuda_kernels, device, stack_streams, scan_context
     )
+    scan_ref = dict(scan_context, squid_solution=scan_context["squid_solution"]["float32"])
     del scan_context
     with _exact_coupling():
         transform_launches = phase_transforms(
@@ -3716,7 +4009,11 @@ def main() -> int:
         solve_film_launches = phase_native_solve_film(
             torch, st, cuda_kernels, device, large, transport, post_times
         )
-    del device, stack_solution, large, transport
+    with _exact_coupling():
+        phase_parallel(
+            torch, st, kernels, cuda_kernels, device, large, sweep_ref, lu_solutions, scan_ref
+        )
+    del device, stack_solution, large, transport, scan_ref
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches

@@ -23,7 +23,10 @@ per-point norms reach the host.
 
 Matrix-free films have no materialized system and are skipped with a
 note; so are vortex films, as in the JAX package (their response columns
-add rank-one terms outside the plain linear system).
+add rank-one terms outside the plain linear system).  A film factorized
+over a mesh (``"inv"``) is certified like an LU film, its correction
+solved by the row-sharded product ``M r`` and its residual formed on each
+slot's rows of ``A``, as the JAX package's certificate treats ``"inv"``.
 """
 
 import time
@@ -32,8 +35,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .ops import kernels, linalg
+from .ops import linalg
 from .ops.fem import gather_matvec_batch
+from .parallel.rows import RowSharded
 
 __all__ = ["certify_sweep", "refine_sweep_f64", "sweep_outputs_from_streams"]
 
@@ -41,15 +45,6 @@ __all__ = ["certify_sweep", "refine_sweep_f64", "sweep_outputs_from_streams"]
 # (certify_sweep's note adds it in brackets).
 _MATRIX_FREE = ("matrix-free film", "no materialized system")
 _VORTEX = ("vortex film", "rank-1 response terms outside the plain linear system")
-
-
-def _residual_f64(A: torch.Tensor, G: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-    """``R = H + A @ G`` in float64 (``G``, ``H`` ``(ni, B)`` float64): the
-    ``residual_f64`` kernel for a float32 ``A``, the plain product for a
-    float64 one."""
-    if A.dtype == torch.float32:
-        return kernels.residual_f64(A, G, H)
-    return H + A @ G
 
 
 def _skipped(data):
@@ -104,9 +99,12 @@ def _refine(data, G, H, R, steps: int):
     through the film's factorization (``(-A) x = rhs``, in the factors'
     dtype) and the residual in float64.  Returns the refined ``G`` and its
     residual."""
+    from .sweep import _factors
+
+    factors = _factors(data)
     for _ in range(steps):
-        G = G + linalg.lu_solve((data.lu, data.perm), R.to(data.lu.dtype)).double()
-        R = _residual_f64(data.A, G, H)
+        G = G + linalg.lu_solve(factors, R.to(data.lu.dtype)).double()
+        R = linalg.system_residual(data.A, H, G)
     return G, R
 
 
@@ -173,7 +171,7 @@ def refine_sweep_f64(
             data, g_in, None if others is None else others[name], Hz_applied[name],
             None if I_circ is None else I_circ[name],
         )
-        R = _residual_f64(data.A, G, H)
+        R = linalg.system_residual(data.A, H, G)
         h_norms = torch.linalg.vector_norm(H, dim=0)
         rel_before = _rel_max(R, h_norms)
         G64, R = _refine(data, G, H, R, steps)
@@ -291,7 +289,7 @@ def certify_sweep(
             data, streams[name], None if others is None else others[name], Hz_applied[name],
             None if I_circ is None else I_circ[name],
         )
-        R = _residual_f64(data.A, G, H)
+        R = linalg.system_residual(data.A, H, G)
         h_norms = torch.linalg.vector_norm(H, dim=0)
         rel = (torch.linalg.vector_norm(R, dim=0) / h_norms).cpu().numpy()
         out["residual_rel_per_film"][name] = [float(f"{v:.3e}") for v in rel]
@@ -302,7 +300,9 @@ def certify_sweep(
             ni = data.A.shape[0]
             rows = np.sort(rng.choice(ni, size=min(n_sample_rows, ni), replace=False))
             rows_t = torch.as_tensor(rows, device=data.A.device)
-            A_rows = data.A[rows_t].cpu().numpy().astype(np.float64)
+            A_rows = (
+                data.A.take_rows(rows_t) if isinstance(data.A, RowSharded) else data.A[rows_t]
+            ).cpu().numpy().astype(np.float64)
             r_host = A_rows @ G.cpu().numpy() + H[rows_t].cpu().numpy()
             r_dev = R[rows_t].cpu().numpy()
             disagreement = float(

@@ -3,6 +3,13 @@
 // Replaces the Pallas TPU kernel pallas_q_matrix (_q_tile_kernel) of
 // superscreen_tpu/ops/pallas_kernels.py.
 //
+// Two entry points share the kernel: the square matrix q(points, points),
+// and a rectangular block q(eval, src) of m evaluation rows against n
+// sources, with m n values in rows of n.  A row block of the square matrix
+// (eval = points + r0) is the block a model slot of a row-sharded system
+// assembles; its diagonal, at column r0 + i of row i, is zero like the
+// square matrix's, and the caller sets it.
+//
 // Bound: the kernel reads 2n coordinates and writes n^2 values, with about
 // ten arithmetic operations per value, so the writes bound it: 4 n^2 bytes
 // in float32 (1.6 GB at n = 20000), 0.49 ms at 3.35 TB/s.
@@ -31,7 +38,8 @@ template <> struct Vec16<double> { using type = double2; static constexpr int V 
 
 template <typename T>
 __global__ void __launch_bounds__(QM_COLS)
-q_matrix_kernel(const sstt::Vec2<T>* __restrict__ pts, int64_t n, T* __restrict__ out) {
+q_matrix_kernel(const sstt::Vec2<T>* __restrict__ eval, int64_t m,
+                const sstt::Vec2<T>* __restrict__ pts, int64_t n, T* __restrict__ out) {
     using Vec = typename Vec16<T>::type;
     constexpr int V = Vec16<T>::V;
     constexpr int VECS_PER_ROW = QM_COLS / V;
@@ -40,10 +48,10 @@ q_matrix_kernel(const sstt::Vec2<T>* __restrict__ pts, int64_t n, T* __restrict_
 
     const int64_t c0 = static_cast<int64_t>(blockIdx.x) * QM_COLS;
     const int64_t i0 = static_cast<int64_t>(blockIdx.y) * QM_ROWS;
-    const int rows = n - i0 < QM_ROWS ? static_cast<int>(n - i0) : QM_ROWS;
+    const int rows = m - i0 < QM_ROWS ? static_cast<int>(m - i0) : QM_ROWS;
     const int cols = n - c0 < QM_COLS ? static_cast<int>(n - c0) : QM_COLS;
     if (threadIdx.x < rows) {
-        row_pts[threadIdx.x] = pts[i0 + threadIdx.x];
+        row_pts[threadIdx.x] = eval[i0 + threadIdx.x];
     }
     __syncthreads();
     if (threadIdx.x < cols) {
@@ -90,16 +98,18 @@ q_matrix_kernel(const sstt::Vec2<T>* __restrict__ pts, int64_t n, T* __restrict_
 }
 
 template <typename T>
-int launch_q_matrix(const T* points, int64_t n, T* out, void* stream) {
-    if (n <= 0) {
+int launch_q_matrix(const T* eval, int64_t m, const T* points, int64_t n, T* out,
+                    void* stream) {
+    if (m <= 0 || n <= 0) {
         return static_cast<int>(cudaSuccess);
     }
-    const int64_t row_tiles = (n + QM_ROWS - 1) / QM_ROWS;
+    const int64_t row_tiles = (m + QM_ROWS - 1) / QM_ROWS;
     if (row_tiles > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const dim3 grid(sstt::ceil_div(n, QM_COLS), static_cast<unsigned int>(row_tiles));
     q_matrix_kernel<T><<<grid, QM_COLS, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const sstt::Vec2<T>*>(eval), m,
         reinterpret_cast<const sstt::Vec2<T>*>(points), n, out);
     return static_cast<int>(cudaGetLastError());
 }
@@ -107,9 +117,19 @@ int launch_q_matrix(const T* points, int64_t n, T* out, void* stream) {
 }  // namespace
 
 extern "C" int sstt_q_matrix_f32(const float* points, int64_t n, float* out, void* stream) {
-    return launch_q_matrix<float>(points, n, out, stream);
+    return launch_q_matrix<float>(points, n, points, n, out, stream);
 }
 
 extern "C" int sstt_q_matrix_f64(const double* points, int64_t n, double* out, void* stream) {
-    return launch_q_matrix<double>(points, n, out, stream);
+    return launch_q_matrix<double>(points, n, points, n, out, stream);
+}
+
+extern "C" int sstt_q_matrix_rect_f32(const float* eval, int64_t m, const float* src, int64_t n,
+                                      float* out, void* stream) {
+    return launch_q_matrix<float>(eval, m, src, n, out, stream);
+}
+
+extern "C" int sstt_q_matrix_rect_f64(const double* eval, int64_t m, const double* src,
+                                      int64_t n, double* out, void* stream) {
+    return launch_q_matrix<double>(eval, m, src, n, out, stream);
 }

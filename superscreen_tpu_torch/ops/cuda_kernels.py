@@ -36,6 +36,7 @@ __all__ = [
     "LAUNCHES",
     "load_library",
     "q_matrix",
+    "q_matrix_rect",
     "biot_savart_batch",
     "q_apply",
     "biot_savart_pair",
@@ -130,6 +131,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"sstt_q_matrix_{suffix}")
         fn.argtypes = [ptr, i64, ptr, ptr]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"sstt_q_matrix_rect_{suffix}")
+        fn.argtypes = [ptr, i64, ptr, i64, ptr, ptr]
+        fn.restype = ctypes.c_int
         fn = getattr(lib, f"sstt_biot_savart_{suffix}")
         fn.argtypes = [ptr, ptr, ptr, ptr, scalar, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -217,6 +221,31 @@ def q_matrix(points: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, f"sstt_q_matrix_{suffix}")(
             points.data_ptr(), n, out.data_ptr(), stream
+        )
+    _raise_on_error("q_matrix", code)
+    LAUNCHES["q_matrix"] += 1
+    return out
+
+
+def q_matrix_rect(eval_sites: torch.Tensor, src_sites: torch.Tensor) -> torch.Tensor:
+    """The block ``q(eval_sites, src_sites)`` ``(m, n)`` of the same kernel
+    for ``(m, 2)`` and ``(n, 2)`` CUDA points: zero where a pair
+    coincides, so a row block ``q(points[r0:r1], points)`` of the square
+    matrix has its diagonal, at column ``r0 + i`` of row ``i``, zero as
+    :func:`q_matrix` leaves it.  Counted as a ``q_matrix`` launch."""
+    suffix = _suffix(eval_sites.dtype)
+    m, n = eval_sites.shape[0], src_sites.shape[0]
+    _check("eval_sites", eval_sites, eval_sites.dtype, (m, 2))
+    _check("src_sites", src_sites, eval_sites.dtype, (n, 2))
+    _same_device("eval_sites", eval_sites, src_sites=src_sites)
+    out = torch.empty((m, n), dtype=eval_sites.dtype, device=eval_sites.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(eval_sites.device):
+        lib = load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"sstt_q_matrix_rect_{suffix}")(
+            eval_sites.data_ptr(), m, src_sites.data_ptr(), n, out.data_ptr(), stream
         )
     _raise_on_error("q_matrix", code)
     LAUNCHES["q_matrix"] += 1

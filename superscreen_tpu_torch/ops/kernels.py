@@ -27,6 +27,7 @@ from . import cuda_kernels
 __all__ = [
     "cdist",
     "q_matrix",
+    "q_matrix_rect",
     "q_apply_rect",
     "q_apply",
     "C_vector",
@@ -100,6 +101,31 @@ def q_matrix(points: torch.Tensor) -> torch.Tensor:
     if _uses_kernel(points):
         return cuda_kernels.q_matrix(points.contiguous())
     return q_matrix_plain(points)
+
+
+def q_matrix_rect_plain(
+    eval_sites: torch.Tensor, src_sites: torch.Tensor, block: int = _BLOCK
+) -> torch.Tensor:
+    """Plain PyTorch ``q(eval_sites, src_sites)`` in row blocks: zero where
+    a pair coincides, so each row equals that row of
+    :func:`q_matrix_plain` on the same points, to the bit."""
+    out = torch.empty(
+        (eval_sites.shape[0], src_sites.shape[0]), dtype=src_sites.dtype, device=src_sites.device
+    )
+    for lo in range(0, eval_sites.shape[0], block):
+        out[lo : lo + block] = _q_block(eval_sites[lo : lo + block], src_sites)
+    return out
+
+
+def q_matrix_rect(eval_sites: torch.Tensor, src_sites: torch.Tensor) -> torch.Tensor:
+    """The rectangular block ``q(eval_sites, src_sites)`` ``(m, n)`` of the
+    kernel matrix, zero where a pair coincides: ``q_matrix_rect(points[r0:
+    r1], points)`` is rows ``r0:r1`` of :func:`q_matrix` with the diagonal,
+    at column ``r0 + i`` of row ``i``, left zero for the caller.  A model
+    slot of a row-sharded system assembles its rows with it."""
+    if _uses_kernel(eval_sites):
+        return cuda_kernels.q_matrix_rect(eval_sites.contiguous(), src_sites.contiguous())
+    return q_matrix_rect_plain(eval_sites, src_sites)
 
 
 def q_apply_plain(

@@ -8,6 +8,13 @@ is the iterate with the smallest residual.  A film whose system is not
 materialized is solved on the matrix-free operator :func:`brandt_matvec`
 with a Jacobi preconditioner: by CG, or by BiCGStab when an inhomogeneous
 Lambda makes the operator non-symmetric.
+
+A film past the single-device dense ceiling, kept dense because a
+factorization mesh is installed (:mod:`superscreen_tpu_torch.parallel`),
+has a row-sharded system (:class:`parallel.rows.RowSharded`) and is
+factorized as ``("inv", M, w)``: the explicit solution operator ``M`` of
+:func:`parallel.sharding.sharded_spd_inverse`.  :func:`lu_solve` and the
+refined solves take either form of the factors.
 """
 
 import logging
@@ -17,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.rows import RowSharded
 from . import kernels
 from .fem import gather_matvec
 
@@ -24,6 +32,8 @@ logger = logging.getLogger("solve")
 
 __all__ = [
     "factor_system",
+    "factors_dtype",
+    "is_inverse",
     "lu_solve",
     "lu_solve_refined",
     "refine_safeguarded",
@@ -54,20 +64,53 @@ def _pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
     return torch.tensor(perm, device=piv.device)
 
 
-def factor_system(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def factor_system(A, weights_col=None, force_sharded: bool = False):
     """LU factors of ``-A`` (solves are against ``-A``): the packed
-    ``LU`` and the row permutation ``perm`` with ``(-A)[perm] = L U``."""
+    ``LU`` and the row permutation ``perm`` with ``(-A)[perm] = L U``.
+
+    ``force_sharded`` marks a film past the single-device dense ceiling
+    that stayed dense only because a factorization mesh is installed (as
+    in the JAX package, on every backend): its system ``A`` (a
+    :class:`RowSharded` or a tensor) is inverted row-sharded over the
+    mesh by :func:`parallel.sharding.sharded_spd_inverse`, with
+    ``weights_col`` (the column scaling that makes ``-A / w`` SPD), and
+    the factors are ``("inv", M, w)``."""
+    if force_sharded:
+        from ..parallel import sharding
+
+        mesh = sharding.factorization_mesh()
+        if mesh is None or mesh.shape["model"] <= 1:
+            raise ValueError(
+                "force_sharded factorization requires an installed "
+                "factorization mesh with a model axis > 1 "
+                "(parallel.set_factorization_mesh)."
+            )
+        return ("inv", sharding.sharded_inverse_of_system(mesh, A, weights_col), weights_col)
     lu, piv = torch.linalg.lu_factor(-A)
     return lu, _pivots_to_permutation(piv)
 
 
-def lu_solve(lu_perm: Tuple[torch.Tensor, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+def is_inverse(factors) -> bool:
+    """True for the ``("inv", M, w)`` factors of a row-sharded film,
+    False for LU factors ``(lu, perm)``."""
+    return isinstance(factors[0], str) and factors[0] == "inv"
+
+
+def factors_dtype(factors) -> torch.dtype:
+    """The dtype the factors solve in: the packed ``LU``'s or ``M``'s."""
+    return factors[1].dtype if is_inverse(factors) else factors[0].dtype
+
+
+def lu_solve(lu_perm, h: torch.Tensor) -> torch.Tensor:
     """Solves ``(-A) x = h`` for ``h`` of shape ``(n,)`` or ``(n, k)``.
 
     Two triangular solves read the triangles of the packed ``LU`` in
     place; ``torch.linalg.lu_solve`` would first unpack ``L`` and ``U``
-    into new ``(n, n)`` buffers on every call.
+    into new ``(n, n)`` buffers on every call.  Factors ``("inv", M, w)``
+    solve by the row-sharded product ``M h``, gathered on ``h``'s device.
     """
+    if is_inverse(lu_perm):
+        return lu_perm[1] @ h
     lu, perm = lu_perm
     squeeze = h.ndim == 1
     rhs = (h[:, None] if squeeze else h)[perm]
@@ -91,7 +134,7 @@ def lu_solve_refined(
     :mod:`superscreen_tpu_torch.solver.refine`): it is solved to float64
     accuracy by :func:`refined_solve`, with the factors as preconditioner.
     """
-    if lu_perm[0].dtype != A.dtype:
+    if factors_dtype(lu_perm) != A.dtype:
         return refined_solve(A, mixed_preconditioner(lu_perm, A.dtype), h)
     squeeze = h.ndim == 1
     if squeeze:
@@ -114,18 +157,19 @@ def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.
     system is therefore formed in float64 for any number of columns, by
     :func:`ops.kernels.residual_f64`, which reads the float32 ``A`` once,
     takes ``x`` and ``h`` as they are and rounds once to ``h``'s dtype.
+    A row-sharded ``A`` runs it on each slot's rows.
     """
     if A.dtype != torch.float32:
         return h + A @ x
+    if isinstance(A, RowSharded):
+        return A.residual_f64(x, h, out_dtype=h.dtype)
     return kernels.residual_f64(A, x, h, out_dtype=h.dtype)
 
 
-def mixed_preconditioner(
-    lu_perm: Tuple[torch.Tensor, torch.Tensor], dtype: torch.dtype
-) -> Callable[[torch.Tensor], torch.Tensor]:
+def mixed_preconditioner(lu_perm, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
     """The factors of a lower-precision copy of ``-A`` as an approximate
     solver for right-hand sides of ``dtype``: cast down, solve, cast up."""
-    low = lu_perm[0].dtype
+    low = factors_dtype(lu_perm)
 
     def precond(rhs: torch.Tensor) -> torch.Tensor:
         return lu_solve(lu_perm, rhs.to(low)).to(dtype)

@@ -13,7 +13,12 @@ the sparse Laplacian, and is LU-factorized; or, with
 ``SUPERSCREEN_TPU_LARGE_FACTOR=cg`` or an interior above the materialized
 ceiling, it is not materialized at all and is solved on the matrix-free
 operator: by CG, or by BiCGStab when its Lambda is inhomogeneous.  Its
-hole systems are the row-sum vectors themselves.
+hole systems are the row-sum vectors themselves.  With a factorization
+mesh installed (:func:`superscreen_tpu_torch.parallel.set_factorization_mesh`)
+the ceiling rises by ``sqrt(n_model)``, and a film past the single-device
+ceiling is assembled straight into row blocks over the mesh's model slots
+(each slot's block of ``q`` from the ``q_matrix`` kernel's rectangular
+entry) and inverted there: its factors are ``("inv", M, w)``.
 
 An inhomogeneous Lambda adds the ``(grad Lambda) . grad`` term to every
 system: a dense block on the dense path, COO triplets folded into the
@@ -39,6 +44,7 @@ from ..device import Device
 from ..io import new_group
 from ..ops import kernels, linalg
 from ..ops.fem import COO, gather_matvec
+from ..parallel.rows import RowSharded, row_bounds
 from ..solution import FilmSolution
 from .utils import FilmInfo, stream_from_terminal_current
 
@@ -84,7 +90,9 @@ class LinearSystem:
             for a film solved matrix-free.
         indices: The mesh indices this system acts on.
         lu_piv: The LU factorization ``(LU, perm)`` of ``-A`` (see
-            :func:`superscreen_tpu_torch.ops.linalg.factor_system`), or None.
+            :func:`superscreen_tpu_torch.ops.linalg.factor_system`), or
+            ``("inv", M, w)`` for a film factorized over a mesh (``A``
+            and ``M`` row-sharded), or None.
         cg_op: The matrix-free operator pieces of a film solved by CG (see
             :func:`superscreen_tpu_torch.ops.linalg.brandt_matvec`), or None.
     """
@@ -102,9 +110,13 @@ class LinearSystem:
         ``matrix_free`` group of this package's own.  The tensors come to
         the host here."""
         if self.A is not None:
-            h5group["A"] = self.A.cpu().numpy()
+            h5group["A"] = np.asarray(self.A.cpu() if torch.is_tensor(self.A) else self.A)
         h5group["indices"] = np.asarray(self.indices)
-        if self.lu_piv is not None:
+        if self.lu_piv is not None and linalg.is_inverse(self.lu_piv):
+            # The JAX package's layout of its explicit inverse, gathered.
+            h5group["inv_M"] = np.asarray(self.lu_piv[1])
+            h5group["inv_w"] = self.lu_piv[2].cpu().numpy()
+        elif self.lu_piv is not None:
             lu, perm = self.lu_piv
             h5group["lu"] = lu.cpu().numpy()
             h5group["piv"] = permutation_to_pivots(perm.cpu().numpy())
@@ -127,16 +139,23 @@ class LinearSystem:
         identity block up to a multiple of 2048: ``A``, ``lu`` and ``piv``
         are cut back to ``len(indices)`` (partial pivoting never leaves the
         film's block, so the cut factors are those of the film's system).
-        A system the JAX package factorized in a way this package does not
-        (its ``"cg"``, ``"chol"`` and ``"inv"`` factorizations) raises
-        ``NotImplementedError`` naming the tag.
+        A system factorized in a way this package does not load (the JAX
+        package's ``"cg"`` and ``"chol"`` factorizations, and an ``"inv"``
+        explicit inverse of either package, which belongs to a device
+        mesh) raises ``NotImplementedError`` naming the tag.
         """
-        for tag, key in (("cg", "cg_sub_sites"), ("chol", "chol_L"), ("inv", "inv_M")):
+        for tag, key in (("cg", "cg_sub_sites"), ("chol", "chol_L")):
             if key in h5group:
                 raise NotImplementedError(
                     f"The system's {tag!r} factorization of the JAX package has no "
                     "counterpart here; refactorize the model with superscreen_tpu_torch."
                 )
+        if "inv_M" in h5group:
+            raise NotImplementedError(
+                "The system's 'inv' factorization is an explicit inverse that belongs to a "
+                "device mesh; refactorize the model with superscreen_tpu_torch, with the "
+                "factorization mesh installed (parallel.set_factorization_mesh)."
+            )
         indices = np.array(h5group["indices"])
         ni = len(indices)
 
@@ -342,6 +361,36 @@ def _build_system_2d_lowmem(info: FilmInfo, ix: np.ndarray, sites: torch.Tensor)
     return A.index_put_((rows, cols), -vals, accumulate=True)
 
 
+def _build_system_2d_lowmem_rows(
+    info: FilmInfo, ix: np.ndarray, sites: torch.Tensor, slots
+) -> RowSharded:
+    """:func:`_build_system_2d_lowmem` assembled straight into row blocks
+    over the model slots ``slots``: slot ``j``'s block of ``q`` is
+    ``q(sub[r0:r1], sub)`` from the ``q_matrix`` kernel's rectangular
+    entry on its own device, its diagonal (column ``r0 + i`` of row
+    ``i``) set from the matrix-free row sums, and the Laplacian triplets of
+    its rows scattered in.  The full ``(ni, ni)`` system never lands on
+    one slot; each block equals those rows of the unsharded system."""
+    ix_t = torch.as_tensor(ix, device=sites.device)
+    diag = _lowmem_diag(info, sites, ix_t)
+    sub = sites[ix_t]
+    w_sub = info.weights[ix_t]
+    op = _restricted_lambda_triplets(info, ix)
+    blocks = []
+    for (r0, r1), slot in zip(row_bounds(len(ix), len(slots)), slots):
+        block = kernels.q_matrix_rect(sub[r0:r1].to(slot), sub.to(slot))
+        block.neg_()
+        block[:, r0:r1].diagonal().copy_(diag[r0:r1])
+        block.mul_(w_sub.to(slot)[None, :])
+        mine = (op.rows >= r0) & (op.rows < r1)
+        rows, cols, vals = (
+            torch.as_tensor(a, device=slot)
+            for a in (op.rows[mine] - r0, op.cols[mine], op.vals[mine])
+        )
+        blocks.append(block.index_put_((rows, cols), -vals, accumulate=True))
+    return RowSharded(blocks)
+
+
 def _lowmem_operator_pieces(info: FilmInfo, ix: np.ndarray, sites: torch.Tensor):
     """The matrix-free operator pieces of a low-memory film's interior
     system (see :func:`ops.linalg.brandt_matvec`); nothing of size
@@ -417,6 +466,7 @@ def factorize_linear_systems(
         ``{film: TerminalSystems}``.
     """
     method = linalg.large_factor_method()
+    from ..parallel import sharding
 
     def factor(A):
         return None if assemble_only else linalg.factor_system(A)
@@ -439,13 +489,24 @@ def factorize_linear_systems(
                 )
                 for hole_name, indices in info.hole_indices.items()
             }
+            single_device_max = max_materialized_n(info.weights.dtype)
             if not assemble_only and (
-                method == "cg" or len(interior) > max_materialized_n(info.weights.dtype)
+                method == "cg" or len(interior) > sharding._sharded_dense_ceiling(single_device_max)
             ):
                 film_systems[film_name] = LinearSystem(
                     A=None,
                     indices=interior,
                     cg_op=_lowmem_operator_pieces(info, interior, sites),
+                )
+            elif not assemble_only and len(interior) > single_device_max:
+                # Dense only because the installed mesh's slots together
+                # hold it: assembled and inverted row-sharded.
+                slots = list(sharding.factorization_mesh().devices[0])
+                A = _build_system_2d_lowmem_rows(info, interior, sites, slots)
+                w_col = info.weights[torch.as_tensor(interior, device=sites.device)]
+                film_systems[film_name] = LinearSystem(
+                    A=A, indices=interior,
+                    lu_piv=linalg.factor_system(A, w_col, force_sharded=True),
                 )
             else:
                 A = _build_system_2d_lowmem(info, interior, sites)

@@ -66,13 +66,6 @@ def _length_factor(from_units: str, to_units: str) -> float:
     return float(_global_ureg(f"1 {from_units}").to(to_units).magnitude)
 
 
-def _no_sharding(sharding) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding is not ported yet (ROADMAP item 10, multi-GPU); the scan runs on one card."
-        )
-
-
 def _tensor(array, dtype, torch_device) -> torch.Tensor:
     """A NumPy array or a tensor as a tensor of ``dtype`` on the device."""
     if torch.is_tensor(array):
@@ -283,7 +276,8 @@ def _cross_field_maps(
 
 
 def _factorize_squid(
-    squid_solution, current_units, field_units, coupling, iterations, torch_device
+    squid_solution, current_units, field_units, coupling, iterations, torch_device,
+    sharding=None,
 ):
     """The SQUID factorized with its drive (in ``current_units``) and its
     zero-applied-field currents, solved through the same batched path as
@@ -312,7 +306,7 @@ def _factorize_squid(
     base = solve_many(
         model=model, applied_field_arrays=zeros, field_units=field_units,
         current_units=current_units, iterations=iterations, coupling=coupling,
-        torch_device=torch_device,
+        sharding=sharding, torch_device=torch_device,
     )
     return model, {name: base.current_densities[name][0] for name in squid.meshes}
 
@@ -365,17 +359,22 @@ def susceptibility_scan(
         units: Output units (default ``Phi_0 / A``).
         with_units: Return a Quantity array instead of floats.
         batch_size: Positions per sweep (default: all at once).
-        sharding: Not supported (must be None).
+        sharding: Optional batch sharding of the scan's sweeps (a
+            :class:`superscreen_tpu_torch.parallel.sharding.NamedSharding`,
+            see :func:`superscreen_tpu_torch.solve_many`): the positions of
+            each sweep are split over the mesh's data rows.
         torch_device: ``"cuda"`` (default) or ``"cpu"``.
 
     Returns:
         ``(B,)`` response mutual inductance ``Phi_pickup / I_fc`` in
         ``units`` (negative for a diamagnetic sample).
     """
+    from ..parallel.sharding import batch_mesh
     from ..sweep import solve_many
 
-    _no_sharding(sharding)
     torch_device = resolve_torch_device(torch_device)
+    if sharding is not None:
+        batch_mesh(sharding, torch_device)  # refuse a bad sharding before any work
     if (sample_device is None) == (sample_model is None):
         raise ValueError("Provide exactly one of sample_device or sample_model.")
     if sample_model is None:
@@ -403,7 +402,7 @@ def susceptibility_scan(
     out = np.zeros(B, dtype=float)
     sweep = dict(
         field_units=field_units, current_units=current_units, iterations=iterations,
-        coupling=coupling, torch_device=torch_device,
+        coupling=coupling, sharding=sharding, torch_device=torch_device,
     )
 
     squid_model = squid_base_J = None
@@ -414,7 +413,8 @@ def susceptibility_scan(
                 f"units (got {squid.length_units!r} vs {length_units!r})."
             )
         squid_model, squid_base_J = _factorize_squid(
-            squid_solution, current_units, field_units, coupling, iterations, torch_device
+            squid_solution, current_units, field_units, coupling, iterations, torch_device,
+            sharding,
         )
 
     for start in range(0, B, batch_size or B):
@@ -504,16 +504,19 @@ def magnetometry_scan(
         units: Output flux units (default ``Phi_0``).
         with_units: Return a Quantity array instead of floats.
         batch_size: Positions per chunk.
-        sharding: Not supported (must be None).
+        sharding: Optional batch sharding of the screening sweep (see
+            :func:`susceptibility_scan`).
         torch_device: ``"cuda"`` (default) or ``"cpu"``.
 
     Returns:
         ``(B,)`` pickup-loop flux in ``units``.
     """
+    from ..parallel.sharding import batch_mesh
     from ..sweep import solve_many
 
-    _no_sharding(sharding)
     torch_device = resolve_torch_device(torch_device)
+    if sharding is not None:
+        batch_mesh(sharding, torch_device)  # refuse a bad sharding before any work
     device = sample_solution.device
     length_units = device.length_units
     current_units = sample_solution.current_units
@@ -569,7 +572,7 @@ def magnetometry_scan(
             squid_result = solve_many(
                 model=squid_model, applied_field_arrays=H_squid, field_units=field_units,
                 current_units=current_units, iterations=iterations, coupling=coupling,
-                torch_device=torch_device,
+                sharding=sharding, torch_device=torch_device,
             )
             pts_sq = np.broadcast_to(contour[None], (Bc,) + contour.shape)
             flux = flux + _contour_flux(

@@ -31,6 +31,8 @@ from .geometry import close_curve, path_vectors
 from .ops import kernels
 from .ops import linalg
 from .ops.fem import gather_matvec_batch
+from .parallel.rows import RowSharded, row_bounds
+from .parallel.sharding import DataSharded, ShardedFilmData
 from .solution import FilmSolution, Solution, Vortex
 from .sources import ConstantField
 
@@ -49,9 +51,11 @@ class FilmSweepData:
         interior: ``(ni,)`` mesh indices of the film's system.
         lu, perm: LU factorization of ``-A`` (packed factors and row
             permutation, see :func:`ops.linalg.factor_system`); None for
-            a matrix-free film.
+            a matrix-free film.  For an ``"inv"`` film, the explicit
+            solution operator ``M`` (a :class:`parallel.rows.RowSharded`)
+            and the column weights ``w``.
         A: ``(ni, ni)`` film system (for the refinement residual); None
-            for a matrix-free film.
+            for a matrix-free film; row-sharded for an ``"inv"`` film.
         Qw: ``(n, n)`` Brandt kernel with the vertex areas folded into its
             columns, ``Q diag(w)``: the self-field is ``Qw @ g``.  None on
             the low-memory path, where the self-field is applied
@@ -66,7 +70,9 @@ class FilmSweepData:
         hole_names: Hole names, in the order of the rows above.
         cg_op: Matrix-free operator pieces of a CG or BiCGStab film, else
             None.
-        fac_kind: ``"lu"``, ``"cg"`` or ``"bicgstab"``: how the film's
+        fac_kind: ``"lu"``, ``"cg"``, ``"bicgstab"`` or ``"inv"`` (a
+            film factorized over a mesh, see
+            :func:`parallel.sharding.sharded_spd_inverse`): how the film's
             system is solved.
         vortex_cols: ``(ni, n_vortices)`` response of the interior stream
             to a unit source at each vortex site, or None.
@@ -261,7 +267,9 @@ def film_sweep_data(model, film_name: str, brandt_diag=None) -> FilmSweepData:
     if info.kernel is not None and not terminal:
         Qw = info.kernel.mul_(w[None, :])
     info.kernel = None
-    if system.cg_op is None:
+    if system.cg_op is None and linalg.is_inverse(system.lu_piv):
+        (_, lu, perm), fac_kind = system.lu_piv, "inv"
+    elif system.cg_op is None:
         (lu, perm), fac_kind = system.lu_piv, "lu"
     else:
         # A non-symmetric operator (inhomogeneous Lambda) needs BiCGStab.
@@ -353,6 +361,8 @@ def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
         # row-major copy, as it always has (its BLAS sums a transposed
         # operand in another order).
         gT = g.T if g.is_cuda else g.T.contiguous()
+        if isinstance(data.Qw, RowSharded):
+            return data.Qw.residual_f64(gT, out_dtype=g.dtype).T
         return kernels.residual_f64(data.Qw, gT, out_dtype=g.dtype).T
     return (data.Qw @ g.T).T
 
@@ -397,6 +407,14 @@ def _check_inversion(name: str, A: torch.Tensor, h: torch.Tensor, gf: torch.Tens
         )
 
 
+def _factors(data: FilmSweepData):
+    """The film's factors as :func:`ops.linalg.lu_solve` takes them:
+    ``(lu, perm)``, or ``("inv", M, w)`` for an ``"inv"`` film."""
+    if data.fac_kind == "inv":
+        return ("inv", data.lu, data.perm)
+    return (data.lu, data.perm)
+
+
 def _solve_film_batch(
     data: FilmSweepData,
     Hz_total: torch.Tensor,  # (B, n): applied + field from other films
@@ -416,13 +434,15 @@ def _solve_film_batch(
         gf = linalg.matrix_free_solve_host(data.cg_op, hT)
     else:
 
+        factors = _factors(data)
+
         def solve(rhs):
-            return linalg.lu_solve((data.lu, data.perm), rhs)
+            return linalg.lu_solve(factors, rhs)
 
         if data.lu.dtype != data.A.dtype:
             # A high-precision film: float64 system, float32 factors.
             gf = linalg.refined_solve(
-                data.A, linalg.mixed_preconditioner((data.lu, data.perm), data.A.dtype), hT
+                data.A, linalg.mixed_preconditioner(factors, data.A.dtype), hT
             )
         else:
             gf = solve(hT)
@@ -480,6 +500,60 @@ def _coupling_round(
     return new_others
 
 
+def _batch_rows(data: FilmSweepData, b0: int, b1: int) -> FilmSweepData:
+    """``data`` with its per-sweep-point fields (``(B, ...)`` vortex
+    amplitudes and terminal offsets) cut to sweep points ``b0:b1``."""
+    cut = {
+        f: getattr(data, f)[b0:b1]
+        for f in ("vortex_nphi0", "g_offset", "ha_offset")
+        if getattr(data, f) is not None and getattr(data, f).ndim == 2
+    }
+    return replace(data, **cut) if cut else data
+
+
+def _row_part(value, r: int, b0: int, b1: int, device) -> torch.Tensor:
+    """Sweep points ``b0:b1`` of an input, data row ``r``'s part of a
+    :class:`parallel.sharding.DataSharded` or a slice of a tensor or
+    array, on ``device``."""
+    if isinstance(value, DataSharded):
+        if value.bounds[r] != (b0, b1):
+            raise ValueError(
+                f"Data row {r} holds sweep points {value.bounds[r]}, the film data's "
+                f"split expects {(b0, b1)}."
+            )
+        return value.parts[r]
+    t = value if torch.is_tensor(value) else torch.as_tensor(np.asarray(value))
+    return t[b0:b1].to(device)
+
+
+def _run_data_rows(runner, film_data: ShardedFilmData, Hz_applied, I_circ, *args,
+                   batch_axis: int = 0, **kwargs):
+    """``runner`` (the single-device sweep) once per data row of
+    ``film_data``'s mesh, on the row's replica and its slice of the sweep
+    points (:func:`parallel.rows.row_bounds`), and the per-film results
+    concatenated on the batch axis on ``mesh.devices[0, 0]``.  No row
+    waits for another: on distinct cards the rows overlap, except where a
+    matrix-free film reads its residual on the host."""
+    mesh = film_data.mesh
+    B = next(iter(Hz_applied.values())).shape[0]
+    outs = []
+    for r, (b0, b1) in enumerate(row_bounds(B, mesh.shape["data"])):
+        if b1 == b0:
+            continue
+        device = mesh.devices[r, 0]
+        outs.append(runner(
+            {name: _batch_rows(d, b0, b1) for name, d in film_data.rows[r].items()},
+            {name: _row_part(v, r, b0, b1, device) for name, v in Hz_applied.items()},
+            {name: _row_part(v, r, b0, b1, device) for name, v in I_circ.items()},
+            *args, **kwargs,
+        ))
+    home = mesh.devices[0, 0]
+    return tuple(
+        {name: torch.cat([out[i][name].to(home) for out in outs], dim=batch_axis) for name in outs[0][i]}
+        for i in range(len(outs[0]))
+    )
+
+
 def _run_sweep_history(
     film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
     check_inversion: bool = False, coupling: str = "exact",
@@ -490,8 +564,15 @@ def _run_sweep_history(
     Returns per-film dicts of stacked tensors with a leading history axis
     of length ``iterations + 1``: ``gs (I+1, B, n)``, ``Js (I+1, B, n, 2)``,
     ``self_fields (I+1, B, n)`` and ``others (I+1, B, n)`` (``others[0]``
-    is zero: the initial solve sees only the applied field).
+    is zero: the initial solve sees only the applied field).  Film data
+    placed on a mesh (:func:`parallel.sharding.sharded_film_data`) runs
+    once per data row (:func:`_run_data_rows`).
     """
+    if isinstance(film_data, ShardedFilmData):
+        return _run_data_rows(
+            _run_sweep_history, film_data, Hz_applied, I_circ, vortex_flux, iterations,
+            refine_steps, check_inversion, coupling, batch_axis=1,
+        )
     films = list(film_data)
     gs = {name: [] for name in films}
     Js = {name: [] for name in films}
@@ -568,7 +649,13 @@ def _run_sweep(
     the self-field is computed once, from the final streams.
 
     Returns ``streams (B, n)``, ``Js (B, n, 2)``, ``self_fields (B, n)``
-    and ``others (B, n)`` per film."""
+    and ``others (B, n)`` per film.  Film data placed on a mesh runs once
+    per data row (:func:`_run_data_rows`)."""
+    if isinstance(film_data, ShardedFilmData):
+        return _run_data_rows(
+            _run_sweep, film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
+            coupling,
+        )
     films = list(film_data)
     inner_refine = _inner_refine_steps(refine_steps) if iterations >= 1 else refine_steps
     streams, Js = {}, {}
@@ -1001,6 +1088,7 @@ def solve_many(
     current_units: str = "uA",
     iterations: int = 0,
     refine_steps: int = 2,
+    sharding=None,
     coupling: str = "auto",
     keep_history: bool = False,
     vortex_nPhi0: Optional[Union[np.ndarray, Dict[str, np.ndarray]]] = None,
@@ -1042,6 +1130,14 @@ def solve_many(
             rounds refine 0 times unless ``SUPERSCREEN_TPU_INNER_REFINE``
             says otherwise: their solver noise is contracted by the
             coupling iteration.
+        sharding: A :class:`parallel.sharding.NamedSharding` whose spec
+            starts with ``"data"`` (``batch_sharding(make_mesh(...))``),
+            its devices all of ``torch_device``'s type: the sweep points
+            are split over the mesh's data rows, each row solves its part
+            against its own replica of the film data (``Q diag(w)`` and
+            ``A`` row-sharded over the row's model slots), and the
+            results are gathered before the :class:`SweepResult`.
+            Composes with every other option.
         coupling: Inter-film coupling operator of the rounds: ``"auto"``
             (the per-round cost model of :func:`_resolve_auto_coupling`,
             fitted on the H100, so it may choose otherwise than the JAX
@@ -1083,6 +1179,11 @@ def solve_many(
     from .solver.utils import currents_to_floats, field_conversion_factor, torch_dtype
 
     torch_device = resolve_torch_device(torch_device)
+    mesh = None
+    if sharding is not None:
+        from .parallel.sharding import batch_mesh
+
+        mesh = batch_mesh(sharding, torch_device)
     if model is None:
         if device is None:
             raise ValueError("Either a model or a device must be provided.")
@@ -1193,8 +1294,13 @@ def solve_many(
                 model, film_data, terminal_currents, B, current_units
             )
         runner = _run_sweep_history if keep_history else _run_sweep
+        run_data = film_data
+        if mesh is not None:
+            from .parallel.sharding import sharded_film_data
+
+            run_data = sharded_film_data(film_data, mesh, pad_to_shardable=False)
         streams, Js, self_fields, others = runner(
-            film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
+            run_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
             coupling=coupling,
         )
         polish_report = None

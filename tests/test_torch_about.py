@@ -13,15 +13,14 @@ import superscreen_tpu_torch as st
 from superscreen_tpu_torch import about, testing
 
 # Left out of the port (ROADMAP): by design, the JAX package's
-# compile-statistics counter; multi-GPU sharding (the parallel package) is
-# not among the modules compared here.
+# compile-statistics counter.
 LEFT_OUT = {
     "solver.solve_film": {"FACTORIZE_STATS"},
 }
 MODULES = [
     "about", "distance", "fem", "io", "testing", "version", "visualization",
     "device.mesh_cache", "device.mesh_generation", "solver", "solver.solve",
-    "solver.solve_film", "solver.utils", "native", "ops",
+    "solver.solve_film", "solver.utils", "native", "ops", "parallel", "parallel.sharding",
 ]
 
 

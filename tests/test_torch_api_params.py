@@ -10,8 +10,8 @@ of the port's, every JAX parameter exists in the port (or the port takes
 and the port requires nothing the JAX package does not.  The one rule for
 all: the port may add ``torch_device`` (its device policy, ROADMAP).
 Every other difference is an entry of ``ALLOWED`` with its reason: the
-by-design list of ROADMAP.md and the multi-GPU module still to port.  An
-entry no difference needs fails the test too.
+by-design list of ROADMAP.md.  An entry no difference needs fails the
+test too.
 
 Also the calls of fault 3.13, which raised ``TypeError`` in the port."""
 
@@ -38,9 +38,6 @@ ALLOWED = {
     ("module", "utils"): _TPU,
     ("module", "utils.profiling"): _TPU,
     ("module", "utils.tunnel"): _TPU,
-    ("module", "parallel"): "multi-GPU, ROADMAP item 10: still to port",
-    ("module", "parallel.sharding"): "multi-GPU, ROADMAP item 10: still to port",
-    ("param", "sweep.solve_many", "sharding"): "multi-GPU, ROADMAP item 10: still to port",
     ("name", "ops.fem", "coo_matvec"): "removed as dead: COO.matvec is the gather form",
     ("name", "ops", "coo_matvec"): "removed as dead: COO.matvec is the gather form",
     ("name", "ops.kernels", "C_vector_masked"): "padding to 2048 multiples is not carried over",

@@ -1057,3 +1057,122 @@ def test_native_core_builds_and_solve_film_matches_cpu(cuda, monkeypatch, low_me
     for quantity in ("stream", "current_density", "self_field"):
         got, want = (getattr(solutions[w], quantity) for w in ("cuda", "cpu"))
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), quantity
+
+
+# -- the multi-device layer (superscreen_tpu_torch.parallel) ------------------
+
+
+def _mesh_devices(k):
+    """``k`` slots: ``cuda:0`` repeated, and the cards in turn where there
+    are several."""
+    count = torch.cuda.device_count()
+    layouts = [["cuda:0"] * k]
+    if count > 1:
+        layouts.append([f"cuda:{i % count}" for i in range(k)])
+    return layouts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n_dst", [(5, 1001), (1, 777), (6, 1)], ids=["ragged", "empty-data-row", "empty-slot"])
+def test_sharded_coupling_and_self_field_on_the_card(cuda, dtype, B, n_dst):
+    """The sharded coupling and self-field on a 2 x 2 mesh at ragged shapes
+    (B and n not divisible; a data row or a model slot holding only
+    padding, which launches nothing) against the unsharded kernels, one
+    launch per non-empty block."""
+    from superscreen_tpu_torch import parallel
+
+    rng = np.random.default_rng(B + n_dst)
+    n_src = 1203
+    t = dict(dtype=dtype, device=cuda)
+    src = torch.as_tensor(rng.uniform(-5, 5, (n_src, 2)), **t)
+    dst = torch.as_tensor(rng.uniform(-5, 5, (n_dst, 2)), **t)
+    areas = torch.as_tensor(rng.uniform(0.01, 0.02, n_src), **t)
+    J = torch.as_tensor(rng.standard_normal((B, n_src, 2)), **t)
+    g = torch.as_tensor(rng.standard_normal((B, n_src)), **t)
+    blocks = sum(d * (-(-B // 2)) < B for d in range(2)) * sum(m * (-(-n_dst // 2)) < n_dst for m in range(2))
+    ref = kernels.biot_savart_film_to_film_dz2(src, areas, J, dst, 0.3)
+    sf_ref = kernels.Q_apply(src, areas, (areas[None, :] * g).T).T
+    # The self-field cancels to a small part of its terms: held relative
+    # to the kernel's own output, q (w g).
+    scale = float(kernels.q_apply(src, (areas[None, :] * g).T).abs().max())
+    for devices in _mesh_devices(4):
+        mesh = parallel.make_mesh(n_data=2, n_model=2, devices=devices)
+        before = dict(cuda_kernels.LAUNCHES)
+        out = parallel.sharded_biot_savart(mesh, src, areas, J, dst, 0.3)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["biot_savart_batch"] - before["biot_savart_batch"] == blocks
+        assert out.shape == (B, n_dst) and _rel_err(out, ref) <= TOL[dtype]
+        diag = parallel.self_field_diagonal(mesh, src, areas)
+        before = dict(cuda_kernels.LAUNCHES)
+        sf = parallel.sharded_self_field(mesh, src, areas, g, diag=diag)
+        torch.cuda.synchronize()
+        sf_blocks = sum(d * (-(-B // 2)) < B for d in range(2)) * 2
+        assert cuda_kernels.LAUNCHES["q_apply"] - before["q_apply"] == sf_blocks
+        assert float((sf - sf_ref).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("n,parts", [(1000, 2), (1002, 2), (1001, 3)], ids=["aligned", "rows-8-bytes-off", "ragged"])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_row_sharded_residual_f64_on_the_card(cuda, n, parts, k):
+    """RowSharded.residual_f64 on aligned and unaligned row blocks (each
+    block a view of the matrix) against the plain version, one launch per
+    block."""
+    from superscreen_tpu_torch.parallel.rows import RowSharded
+
+    rng = np.random.default_rng(n + k)
+    A = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float64, device=cuda)
+    H = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float64, device=cuda)
+    ref = kernels.residual_f64_plain(A, X, H)
+    for devices in _mesh_devices(parts):
+        rows = RowSharded.split(A, devices)
+        if devices[0] == devices[-1]:
+            assert all(b.data_ptr() == A[lo:].data_ptr() for b, (lo, _) in zip(rows.blocks, rows.bounds))
+        before = cuda_kernels.LAUNCHES["residual_f64"]
+        out = rows.residual_f64(X, H)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES["residual_f64"] - before == parts
+        assert _rel_err(out, ref) <= TOL[torch.float64]
+        assert torch.equal(rows.residual_f64(X, H, out_dtype=torch.float32), out.to(torch.float32))
+
+
+@pytest.mark.parametrize("method", ["schur", "schulz"])
+def test_sharded_spd_inverse_on_the_card(cuda, method):
+    """The row-sharded explicit inverse in float64 against torch.linalg.inv,
+    with several pivot panels per slot."""
+    from superscreen_tpu_torch import parallel
+    from superscreen_tpu_torch.parallel import rows
+
+    rng = np.random.default_rng(4)
+    n = 600
+    G = rng.standard_normal((n, n))
+    w = 0.5 + rng.random(n)
+    neg_A = torch.as_tensor(-((G @ G.T / n + 3.0 * np.eye(n)) * w[None, :]), device=cuda)
+    ref = torch.linalg.inv(neg_A)
+    for devices in _mesh_devices(2):
+        mesh = parallel.make_mesh(n_data=1, n_model=2, devices=devices)
+        if method == "schur":
+            P = rows.scaled_rows(rows.RowSharded.split(neg_A, devices),
+                                 torch.as_tensor(w, device=cuda), -1.0)
+            M = rows.schur_inverse_rows(P, torch.as_tensor(w, device=cuda), leaf=128)
+        else:
+            M = parallel.sharded_spd_inverse(mesh, neg_A, torch.as_tensor(w, device=cuda), method)
+        assert [b.device for b in M.blocks] == [torch.device(d) for d in devices]
+        assert _rel_err(M.to_dense(cuda), ref) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r0,r1", [(0, 1000), (256, 700), (3, 517), (999, 1001)], ids=["all", "aligned", "unaligned", "tail"])
+def test_q_matrix_rect_on_the_card(cuda, dtype, r0, r1):
+    """The rectangular entry of the q_matrix kernel: rows r0:r1 of the
+    square matrix, diagonal zero, one launch."""
+    rng = np.random.default_rng(r0)
+    pts = torch.as_tensor(rng.uniform(-5, 5, (1001, 2)), dtype=dtype, device=cuda)
+    before = cuda_kernels.LAUNCHES["q_matrix"]
+    out = cuda_kernels.q_matrix_rect(pts[r0:r1], pts)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["q_matrix"] == before + 1
+    ref = kernels.q_matrix_plain(pts)[r0:r1]
+    assert out.shape == ref.shape and bool((out[:, r0:r1].diagonal() == 0).all())
+    assert _rel_err(out, ref) <= TOL[dtype]
+    assert torch.equal(out, cuda_kernels.q_matrix(pts)[r0:r1])

@@ -106,6 +106,24 @@ def test_susceptibility_scan(setup, back_action, batch_size):
     assert _max_rel(out, ref) <= RTOL
 
 
+@pytest.mark.parametrize("back_action", [0, 1], ids=["first_order", "back_action"])
+def test_sharded_susceptibility_scan_matches_unsharded(setup, back_action):
+    """The scan's sweeps split over two data rows give the unsharded scan."""
+    from superscreen_tpu_torch import parallel
+
+    squid, sample, port_sol = setup["port"]
+    kw = dict(
+        positions=setup["positions"], squid_height=HEIGHT, pickup_loop="pl", I_fc=I_FC,
+        back_action=back_action, torch_device="cpu",
+    )
+    ref = port_scanning.susceptibility_scan(sample, squid_solution=port_sol, **kw)
+    mesh = parallel.make_mesh(n_data=2, devices=["cpu"] * 2)
+    out = port_scanning.susceptibility_scan(
+        sample, squid_solution=port_sol, sharding=parallel.batch_sharding(mesh), **kw
+    )
+    assert _max_rel(out, ref) <= 1e-10
+
+
 def test_susceptibility_scan_with_a_model_per_position_heights_and_units(setup):
     ref_squid, ref_sample, ref_sol = setup["ref"]
     squid, sample, port_sol = setup["port"]
@@ -180,10 +198,10 @@ def test_scanning_contracts(setup):
     with pytest.raises(KeyError, match="nope"):
         port_scanning.build_scan_forward(sample, port_sol, setup["positions"], squid_height=HEIGHT,
                                          pickup_loop="nope", I_fc=I_FC, torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         port_scanning.susceptibility_scan(sample, squid_solution=port_sol, sharding=object(),
                                           torch_device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         port_scanning.magnetometry_scan(None, positions=setup["positions"], squid_height=HEIGHT,
                                         pickup_loop=[(0, 0), (1, 0), (0, 1)], sharding=object(),
                                         torch_device="cpu")
