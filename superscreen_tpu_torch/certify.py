@@ -37,7 +37,7 @@ import torch
 
 from .ops import linalg
 from .ops.fem import gather_matvec_batch
-from .parallel.rows import RowSharded
+from .ops.rows import RowSharded
 
 __all__ = ["certify_sweep", "refine_sweep_f64", "sweep_outputs_from_streams"]
 
@@ -99,11 +99,9 @@ def _refine(data, G, H, R, steps: int):
     through the film's factorization (``(-A) x = rhs``, in the factors'
     dtype) and the residual in float64.  Returns the refined ``G`` and its
     residual."""
-    from .sweep import _factors
-
-    factors = _factors(data)
+    dtype = linalg.factors_dtype(data.factors)
     for _ in range(steps):
-        G = G + linalg.lu_solve(factors, R.to(data.lu.dtype)).double()
+        G = G + linalg.lu_solve(data.factors, R.to(dtype)).double()
         R = linalg.system_residual(data.A, H, G)
     return G, R
 

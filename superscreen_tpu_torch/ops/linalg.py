@@ -11,8 +11,8 @@ Lambda makes the operator non-symmetric.
 
 A film past the single-device dense ceiling, kept dense because a
 factorization mesh is installed (:mod:`superscreen_tpu_torch.parallel`),
-has a row-sharded system (:class:`parallel.rows.RowSharded`) and is
-factorized as ``("inv", M, w)``: the explicit solution operator ``M`` of
+has a row-sharded system (:class:`.rows.RowSharded`) and is factorized
+as ``("inv", M, w)``: the explicit solution operator ``M`` of
 :func:`parallel.sharding.sharded_spd_inverse`.  :func:`lu_solve` and the
 refined solves take either form of the factors.
 """
@@ -24,9 +24,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.rows import RowSharded
 from . import kernels
 from .fem import gather_matvec
+from .rows import RowSharded
 
 logger = logging.getLogger("solve")
 
@@ -74,7 +74,10 @@ def factor_system(A, weights_col=None, force_sharded: bool = False):
     :class:`RowSharded` or a tensor) is inverted row-sharded over the
     mesh by :func:`parallel.sharding.sharded_spd_inverse`, with
     ``weights_col`` (the column scaling that makes ``-A / w`` SPD), and
-    the factors are ``("inv", M, w)``."""
+    the factors are ``("inv", M, w)``.  The port's own factorization
+    (:func:`solver.solve_film.factorize_linear_systems`) knows the mesh and
+    calls :func:`parallel.sharding.sharded_inverse_of_system` itself; this
+    flag keeps the JAX package's call working."""
     if force_sharded:
         from ..parallel import sharding
 

@@ -7,18 +7,25 @@ rows are gathered on the device of the right-hand side.  The one way a
 block reaches another slot is :func:`_send` (``.to(device)``, which
 returns the tensor itself where it is already there: on a device that
 repeats in the mesh the blocks are views of one matrix and cost nothing).
+The container knows nothing of meshes: :mod:`superscreen_tpu_torch.parallel`
+places its blocks.
 
-The product of two row-sharded ``n x n`` operands runs panel by panel
-(:func:`_panel_matmul`): a slot multiplies its rows by one incoming row
-block of the right operand at a time, so no slot ever holds more than its
-own rows, their product and one block.  The explicit inverse
-(:func:`schur_inverse_rows`, :func:`schulz_inverse_rows`) is built from
-such products and from panels of at most one slot's rows, the port's
-counterpart of the JAX package's GSPMD program with its output pinned
-row-sharded (``superscreen_tpu/parallel/sharding.py``
-``sharded_spd_inverse``).  Its products are plain ``torch`` matrix
-products, as the JAX package's are plain XLA ones; the caller keeps TF32
-off.
+The explicit inverse (:func:`schur_inverse_rows`,
+:func:`schulz_inverse_rows`) is that of ``P_s``, the symmetric part of
+``P = sign * A diag(1/w)``, built in :data:`PEAK_BLOCKS` row-sharded
+matrices per slot, the caller's system ``A`` among them: ``A``, the
+iterate ``X`` and the next iterate of a Schulz-Hotelling step.  ``P`` is
+never stored.  ``X`` starts as a scaled copy of ``A``, symmetrised in
+place piece by piece; Gauss-Jordan elimination inverts it in place over
+pivot panels within one slot's rows; a product with ``P_s`` is formed
+from ``A`` and its transpose, one column panel of at most :data:`PANEL`
+columns at a time (:func:`_sym_panel`).  Beyond its blocks a slot holds
+a few ``(n, PANEL)`` panels and one Gauss-Jordan pivot panel of at most
+:data:`SCHUR_LEAF` rows.  This is the port's counterpart of the JAX
+package's GSPMD program with its output pinned row-sharded
+(``superscreen_tpu/parallel/sharding.py`` ``sharded_spd_inverse``).  Its
+products are plain ``torch`` matrix products, as the JAX package's are
+plain XLA ones; the caller keeps TF32 off.
 """
 
 import os
@@ -27,13 +34,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import kernels
+
 __all__ = [
     "RowSharded",
     "row_bounds",
-    "panel_product",
-    "scaled_rows",
     "schur_inverse_rows",
     "schulz_inverse_rows",
+    "PEAK_BLOCKS",
+    "PANEL",
     "SCHULZ_ITERS",
     "SCHUR_LEAF",
 ]
@@ -44,6 +53,14 @@ SCHULZ_ITERS = int(os.environ.get("SUPERSCREEN_TPU_SCHULZ_ITERS", "24"))
 
 #: Largest pivot panel of the ``"schur"`` inverse: the JAX package's leaf.
 SCHUR_LEAF = 2048
+
+#: Columns of one panel of a product with ``P_s``, and the side of one
+#: piece of the in-place symmetrisation (at most a slot's rows).
+PANEL = 2048
+
+#: Row-sharded ``n x n`` matrices a slot holds at the peak of the explicit
+#: inverse, the caller's system included: ``A``, ``X`` and the next ``X``.
+PEAK_BLOCKS = 3
 
 
 def row_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
@@ -155,8 +172,6 @@ class RowSharded:
         """:func:`ops.kernels.residual_f64` ``H + A X`` of a float32
         matrix, one call per non-empty block on its slot's device (``X``
         as it is, ``H`` by rows), the rows gathered on ``X``'s device."""
-        from ..ops import kernels
-
         parts = []
         for b, (lo, hi) in zip(self.blocks, self.bounds):
             if hi == lo:
@@ -185,40 +200,55 @@ class RowSharded:
         return f"RowSharded(shape={self.shape}, dtype={self.dtype}, rows={rows}, devices={devices})"
 
 
-def _panel_matmul(rows: torch.Tensor, right: RowSharded) -> torch.Tensor:
-    """One slot's rows times a row-sharded right operand, on the rows'
-    device: the right operand's row blocks arrive one at a time, each
-    multiplied into the product before the next."""
-    out = torch.zeros((rows.shape[0], right.shape[1]), dtype=rows.dtype, device=rows.device)
-    for block, (lo, hi) in zip(right.blocks, right.bounds):
-        if hi > lo and rows.shape[0]:
-            out.addmm_(rows[:, lo:hi], _send(block, rows.device))
+def _panel_width(X: RowSharded) -> int:
+    """:data:`PANEL`, cut to the rows of the largest block so that a panel
+    never outgrows a slot's rows."""
+    return max(1, min(PANEL, max(hi - lo for lo, hi in X.bounds)))
+
+
+def _sym_panel(A: RowSharded, inv_w: torch.Tensor, sign: float, parts: List[torch.Tensor]):
+    """Row blocks of ``P_s V`` for a column panel ``V`` given by its row
+    blocks (``parts[i]`` on slot ``i``): ``P_s V = sign / 2 (A (V / w) +
+    (A^T V) / w)``.  Slot ``j`` forms ``A_j^T V_j``; slot ``i`` adds the
+    ``i`` rows of each and multiplies its rows of ``A`` by the gathered
+    ``V / w``.  Nothing of size ``n x n`` is formed."""
+    scaled = [p * _send(inv_w[lo:hi], p.device)[:, None] for p, (lo, hi) in zip(parts, A.bounds)]
+    AtV = [b.T @ p for b, p in zip(A.blocks, parts)]
+    out = []
+    for b, (lo, hi) in zip(A.blocks, A.bounds):
+        y = torch.zeros((hi - lo, parts[0].shape[1]), dtype=b.dtype, device=b.device)
+        for t in AtV:
+            y += _send(t[lo:hi], b.device)
+        y *= _send(inv_w[lo:hi], b.device)[:, None]
+        y.addmm_(b, torch.cat([_send(s, b.device) for s in scaled]))
+        out.append(y.mul_(0.5 * sign))
     return out
 
 
-def panel_product(left: RowSharded, right: RowSharded) -> RowSharded:
-    """``left @ right`` of two row-sharded ``n x n`` operands over the
-    same row blocks, panel by panel (:func:`_panel_matmul`)."""
-    return RowSharded([_panel_matmul(rows, right) for rows in left.blocks])
+def _sym_matvec(A: RowSharded, inv_w: torch.Tensor, sign: float, v: torch.Tensor) -> torch.Tensor:
+    """``P_s v`` for ``v`` ``(n,)``, gathered on ``v``'s device."""
+    parts = [_send(v[lo:hi, None], b.device) for b, (lo, hi) in zip(A.blocks, A.bounds)]
+    return torch.cat([_send(y, v.device) for y in _sym_panel(A, inv_w, sign, parts)])[:, 0]
 
 
-def scaled_rows(A: RowSharded, w: torch.Tensor, sign: float) -> RowSharded:
-    """``sign * A diag(1/w)``, slot by slot (``w`` ``(n,)``)."""
-    inv_w = 1.0 / w
-    return RowSharded([sign * (b * _send(inv_w, b.device)[None, :]) for b in A.blocks])
-
-
-def _symmetrized(P: RowSharded) -> RowSharded:
-    """``(P + P^T) / 2``: slot ``i`` receives the ``(rows_j, rows_i)``
-    piece of every block ``j`` and adds its transpose."""
-    out = []
-    for rows, (lo, hi) in zip(P.blocks, P.bounds):
-        S = rows.clone()
-        for block, (a, z) in zip(P.blocks, P.bounds):
-            if z > a and hi > lo:
-                S[:, a:z] += _send(block[:, lo:hi], rows.device).T
-        out.append(S.mul_(0.5))
-    return RowSharded(out)
+def _symmetrize_(X: RowSharded) -> None:
+    """``X <- (X + X^T) / 2`` in place, over pieces of at most
+    :func:`_panel_width` rows and columns, each within one slot's rows: a
+    piece and its mirror are averaged on the piece's slot and the mirror
+    is sent back, so a slot receives at most one piece at a time."""
+    width = _panel_width(X)
+    chunks = [
+        (i, lo, min(lo + width, z)) for i, (a, z) in enumerate(X.bounds) for lo in range(a, z, width)
+    ]
+    for k, (i, p0, p1) in enumerate(chunks):
+        Xi, ai = X.blocks[i], X.bounds[i][0]
+        for j, q0, q1 in chunks[k:]:
+            Xj, aj = X.blocks[j], X.bounds[j][0]
+            upper = Xi[p0 - ai : p1 - ai, q0:q1]
+            lower = Xj[q0 - aj : q1 - aj, p0:p1]
+            S = (upper + _send(lower, Xi.device).T).mul_(0.5)
+            upper.copy_(S)
+            lower.copy_(_send(S, Xj.device).T)
 
 
 def _leaf_spd_inverse(D: torch.Tensor) -> torch.Tensor:
@@ -230,8 +260,8 @@ def _leaf_spd_inverse(D: torch.Tensor) -> torch.Tensor:
     return L_inv.T @ L_inv
 
 
-def _gauss_jordan_inverse(P: RowSharded, leaf: int) -> RowSharded:
-    """Inverse of an SPD row-sharded ``P`` by block Gauss-Jordan
+def _gauss_jordan_inverse_(X: RowSharded, leaf: int) -> None:
+    """Inverts an SPD row-sharded ``X`` in place by block Gauss-Jordan
     elimination over pivot panels of at most ``leaf`` rows, each within
     one slot's rows.  A step inverts the pivot block of the current Schur
     complement (:func:`_leaf_spd_inverse`), forms the pivot panel ``R =
@@ -239,74 +269,95 @@ def _gauss_jordan_inverse(P: RowSharded, leaf: int) -> RowSharded:
     columns), sends it to every slot, and each slot updates its rows:
     ``X[I, :] -= X[I, K] R`` with ``X[I, K]`` zeroed first, which leaves
     ``-X[I, K] D^-1`` there; the pivot rows become ``R``.  After the last
-    panel the rows hold ``P^-1``.  These are the successive Schur
+    panel the rows hold ``X^-1``.  These are the successive Schur
     complements of the JAX package's recursive 2 x 2 Schur inverse, one
     leading panel at a time."""
-    X = [b.clone() for b in P.blocks]
-    for owner, (lo, hi) in zip(X, P.bounds):
+    for owner, (lo, hi) in zip(X.blocks, X.bounds):
         for k0 in range(lo, hi, leaf):
             k1 = min(k0 + leaf, hi)
             D_inv = _leaf_spd_inverse(owner[k0 - lo : k1 - lo, k0:k1])
             R = D_inv @ owner[k0 - lo : k1 - lo]
             R[:, k0:k1] = D_inv
-            for rows in X:
+            for rows in X.blocks:
                 if not rows.shape[0]:
                     continue
                 c = rows[:, k0:k1].clone()
                 rows[:, k0:k1] = 0
                 rows.addmm_(c, _send(R, rows.device), alpha=-1)
             owner[k0 - lo : k1 - lo] = R
-    return RowSharded(X)
 
 
-def _schulz_step(P: RowSharded, X: RowSharded) -> RowSharded:
-    """One Schulz-Hotelling step ``X (2I - P X) = 2X - X (P X)``, written
-    without the identity, panel by panel."""
-    Y = panel_product(P, X)
-    return RowSharded([2.0 * rows - _panel_matmul(rows, Y) for rows in X.blocks])
+def _schulz_step(A: RowSharded, inv_w: torch.Tensor, sign: float, X: RowSharded) -> RowSharded:
+    """One Schulz-Hotelling step ``X (2I - P_s X) = 2X - X (P_s X)``, one
+    column panel at a time into new blocks (every panel reads the whole
+    of ``X``, so ``X`` is not overwritten)."""
+    new = [torch.empty_like(b) for b in X.blocks]
+    n, width = X.shape[1], _panel_width(X)
+    for c0 in range(0, n, width):
+        c1 = min(c0 + width, n)
+        Z = _sym_panel(A, inv_w, sign, [b[:, c0:c1] for b in X.blocks])
+        for rows, out in zip(X.blocks, new):
+            if rows.shape[0]:
+                W = rows @ torch.cat([_send(z, rows.device) for z in Z])
+                out[:, c0:c1] = W.neg_().add_(rows[:, c0:c1], alpha=2.0)
+                del W
+        del Z  # before the next panel's
+    return RowSharded(new)
 
 
-def _solution_operator(P_inv: RowSharded, w: torch.Tensor) -> RowSharded:
-    """``M = -P^-1 / w`` (rows scaled): ``x = M h`` solves ``(-A) x = h``
-    for ``A = P diag(w)``."""
-    return RowSharded([
-        -(rows / _send(w[lo:hi], rows.device)[:, None])
-        for rows, (lo, hi) in zip(P_inv.blocks, P_inv.bounds)
-    ])
+def _solution_operator_(X: RowSharded, w: torch.Tensor) -> RowSharded:
+    """``M = -X / w`` (rows scaled) in place: for ``X = P_s^-1``, ``x = M
+    h`` solves ``(-A) x = h`` where ``A = sign * P diag(w)``."""
+    for rows, (lo, hi) in zip(X.blocks, X.bounds):
+        rows.div_(_send(w[lo:hi], rows.device)[:, None]).neg_()
+    return X
 
 
-def schur_inverse_rows(P: RowSharded, w: torch.Tensor, leaf: int = SCHUR_LEAF) -> RowSharded:
-    """The solution operator ``M = -P^-1 / w`` of the ``"schur"`` method,
-    row-sharded like ``P`` (``P = A diag(1/w)``, SPD): the port of the
-    JAX package's ``_schur_inverse_body``.  ``P`` is symmetrised, inverted
-    by :func:`_gauss_jordan_inverse`, and the inverse takes one
-    Schulz-Hotelling correction against the symmetrised ``P``.  The JAX
-    body pads ``P`` with an identity block to a multiple of its leaf; here
-    a pivot panel may be shorter than ``leaf``, so nothing is padded."""
-    P = _symmetrized(P)
-    P_inv = _gauss_jordan_inverse(P, max(1, int(leaf)))
-    return _solution_operator(_schulz_step(P, P_inv), w)
+def schur_inverse_rows(
+    A: RowSharded, w: torch.Tensor, sign: float = 1.0, leaf: int = SCHUR_LEAF
+) -> RowSharded:
+    """The solution operator ``M`` of ``(-S) x = h`` by the ``"schur"``
+    method, row-sharded like ``A``, for the system ``S = sign * A`` (``A``
+    the system, or with ``sign = -1`` its negation; ``P = S / w`` is SPD
+    up to its antisymmetric part): the port of the JAX package's
+    ``_schur_inverse_body``.  ``P_s`` is inverted in place by
+    :func:`_gauss_jordan_inverse_` and the inverse takes one
+    Schulz-Hotelling correction against ``P_s``.  The JAX body pads ``P``
+    with an identity block to a multiple of its leaf; here a pivot panel
+    may be shorter than ``leaf``, so nothing is padded.  ``A`` is only
+    read."""
+    inv_w = 1.0 / w
+    X = RowSharded([(b * _send(inv_w, b.device)[None, :]).mul_(sign) for b in A.blocks])
+    _symmetrize_(X)
+    _gauss_jordan_inverse_(X, max(1, int(leaf)))
+    return _solution_operator_(_schulz_step(A, inv_w, sign, X), w)
 
 
-def schulz_inverse_rows(P: RowSharded, w: torch.Tensor, iters: int = SCHULZ_ITERS) -> RowSharded:
-    """The solution operator ``M = -P^-1 / w`` of the ``"schulz"`` method,
-    row-sharded like ``P``: the port of the JAX package's
-    ``_jax_spd_inverse``.  ``P`` is symmetrised, ``lambda_max`` estimated
-    by 25 power iterations from the normalised ones vector, and ``iters``
-    Schulz-Hotelling steps run from ``X = I / (1.05 lambda_max)``."""
-    P = _symmetrized(P)
-    n = P.shape[0]
-    v = torch.ones(n, dtype=P.dtype, device=P.device) / np.sqrt(n)
+def schulz_inverse_rows(
+    A: RowSharded, w: torch.Tensor, sign: float = 1.0, iters: Optional[int] = None
+) -> RowSharded:
+    """The solution operator ``M`` (as :func:`schur_inverse_rows`) by the
+    ``"schulz"`` method: the port of the JAX package's
+    ``_jax_spd_inverse``.  ``lambda_max`` of ``P_s`` is estimated by 25
+    power iterations from the normalised ones vector, and ``iters``
+    (default :data:`SCHULZ_ITERS`) Schulz-Hotelling steps run from ``X =
+    I / (1.05 lambda_max)``."""
+    iters = SCHULZ_ITERS if iters is None else iters
+    inv_w = 1.0 / w
+    n = A.shape[0]
+    v = torch.ones(n, dtype=A.dtype, device=A.device) / np.sqrt(n)
     for _ in range(25):
-        v = P @ v
+        v = _sym_matvec(A, inv_w, sign, v)
         v = v / torch.linalg.vector_norm(v)
-    lam = v @ (P @ v)
-    blocks = []
-    for rows, (lo, hi) in zip(P.blocks, P.bounds):
-        X0 = torch.zeros_like(rows)
-        X0[:, lo:hi] = torch.eye(hi - lo, dtype=rows.dtype, device=rows.device)
-        blocks.append(X0 / _send(1.05 * lam, rows.device))
-    X = RowSharded(blocks)
+    lam = v @ _sym_matvec(A, inv_w, sign, v)
+
+    def start(b, lo, hi):
+        X0 = torch.zeros_like(b)
+        X0[:, lo:hi] = torch.eye(hi - lo, dtype=b.dtype, device=b.device)
+        return X0.div_(_send(1.05 * lam, b.device))
+
+    # Only X is left referencing the start, so each step frees it.
+    X = RowSharded([start(b, lo, hi) for b, (lo, hi) in zip(A.blocks, A.bounds)])
     for _ in range(iters):
-        X = _schulz_step(P, X)
-    return _solution_operator(X, w)
+        X = _schulz_step(A, inv_w, sign, X)
+    return _solution_operator_(X, w)

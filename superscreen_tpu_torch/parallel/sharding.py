@@ -40,7 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .rows import RowSharded, row_bounds, scaled_rows, schulz_inverse_rows, schur_inverse_rows
+from ..ops import kernels
+from ..ops.rows import RowSharded, row_bounds, schulz_inverse_rows, schur_inverse_rows
 
 logger = logging.getLogger("parallel")
 
@@ -269,23 +270,19 @@ def _row_placed(value, slots: Sequence[torch.device]):
     return RowSharded.split(value, slots)
 
 
-def _row_sharded_fields(data) -> Tuple[str, ...]:
-    """The fields of a film's sweep data that only products consume, and
-    that are row-sharded: ``Qw`` and ``A``, and the explicit inverse of a
-    film factorized over a mesh.  LU factors feed triangular solves and
-    are replicated."""
-    return ("Qw", "A", "lu") if data.fac_kind == "inv" else ("Qw", "A")
-
-
 def _replica(data, slots: Sequence[torch.device]):
-    """Film sweep data for one data row: the dense operators over its
-    model slots, everything else on its first slot."""
-    sharded = _row_sharded_fields(data)
+    """Film sweep data for one data row: the operators that only products
+    consume (``Qw``, ``A``, and the explicit inverse of a film factorized
+    over a mesh) row-sharded over its model slots, everything else on its
+    first slot (LU factors feed triangular solves and are replicated)."""
     kwargs = {}
     for f in fields(data):
         value = getattr(data, f.name)
-        if f.name in sharded:
+        if f.name in ("Qw", "A"):
             kwargs[f.name] = _row_placed(value, slots)
+        elif f.name == "factors" and data.fac_kind == "inv":
+            _, M, w = value
+            kwargs[f.name] = ("inv", _row_placed(M, slots), w.to(slots[0]))
         else:
             kwargs[f.name] = _replicate(value, slots[0])
     return replace(data, **kwargs)
@@ -314,8 +311,6 @@ def _pad_film_site_axis(data, n_model: int):
     pads would change.  ``interior`` is never padded.  Returns new sweep
     data with ``n`` the padded size.
     """
-    from ..ops import kernels
-
     n = data.n
     n_p = _round_up_div(n, n_model)
     pad = n_p - n
@@ -441,8 +436,6 @@ def sharded_biot_savart(mesh, src_sites, src_areas, J, dst_sites, dz2):
     Returns:
         ``(B, n_dst)`` field on ``mesh.devices[0, 0]``.
     """
-    from ..ops import kernels
-
     J = _tensor(J)
     src_sites, src_areas, dst_sites = (_sites_like(a, J) for a in (src_sites, src_areas, dst_sites))
     n_dst, B = dst_sites.shape[0], J.shape[0]
@@ -476,8 +469,6 @@ def self_field_diagonal(mesh, sites, weights):
     vector ``C`` on the home slot).  Returns ``(n,)`` on
     ``mesh.devices[0, 0]``, for reuse across :func:`sharded_self_field`
     calls."""
-    from ..ops import kernels
-
     home = _home(mesh)
     sites = _tensor(sites, home)
     weights = _tensor(weights).to(dtype=sites.dtype, device=home)
@@ -524,8 +515,6 @@ def sharded_self_field(mesh, sites, weights, g, diag=None):
     Returns:
         ``(B, n)`` self-field on ``mesh.devices[0, 0]``.
     """
-    from ..ops import kernels
-
     home = _home(mesh)
     g = _tensor(g, home)
     sites = _sites_like(sites, g)
@@ -567,23 +556,23 @@ def _inverse_method(method: Optional[str]) -> str:
 
 
 def _sharded_inverse(mesh, A, w_col, sign: float, method: Optional[str]) -> RowSharded:
-    """The solution operator of ``(-A) x = h`` from ``P = sign * A /
-    w`` (``A`` the system with ``sign = +1``, or its negation with ``-1``),
-    row-sharded over the model slots of the mesh's first data row."""
+    """The solution operator of ``(-S) x = h`` for the system ``S = sign *
+    A`` (``P = S / w``), row-sharded over the model slots of the mesh's
+    first data row."""
     method = _inverse_method(method)  # before anything is copied
     slots = list(mesh.devices[0])
     A = A.reshard(slots) if isinstance(A, RowSharded) else RowSharded.split(_tensor(A), slots)
     w = _tensor(w_col).to(dtype=A.dtype, device=A.device)
-    P = scaled_rows(A, w, sign)
     body = schulz_inverse_rows if method == "schulz" else schur_inverse_rows
-    return body(P, w)
+    return body(A, w, sign=sign)
 
 
 def sharded_spd_inverse(mesh, neg_A, w_col, method: Optional[str] = None):
     """Explicit inverse of the Brandt system, row-sharded over the mesh's
-    ``model`` axis: each slot holds ``n / n_model`` rows, and every
-    product runs panel by panel (:mod:`.rows`), so a film beyond one
-    card's memory can stay dense on several.
+    ``model`` axis: each slot holds ``n / n_model`` rows of at most
+    three ``n x n`` matrices at once, the system among them, and a few
+    ``(n, PANEL)`` panels (:mod:`superscreen_tpu_torch.ops.rows`), so a
+    film beyond one card's memory can stay dense on several.
 
     Args:
         mesh: ``(data, model)`` mesh; the inverse lives on the model slots
@@ -593,8 +582,8 @@ def sharded_spd_inverse(mesh, neg_A, w_col, method: Optional[str] = None):
             :class:`RowSharded` (resharded over the slots where needed).
         w_col: Column weights such that ``-A / w`` is SPD.
         method: ``"schur"`` (default; block Gauss-Jordan over pivot panels
-            plus one Schulz correction, ~(10/3) n^3 multiply-adds) or
-            ``"schulz"`` (Schulz-Hotelling iteration, ~2 n^3 per step, 24
+            plus one Schulz correction, ~4 n^3 multiply-adds) or
+            ``"schulz"`` (Schulz-Hotelling iteration, ~3 n^3 per step, 24
             steps, self-correcting).  Defaults to
             ``SUPERSCREEN_TPU_SHARDED_FACTOR``; validated before anything
             is copied.
@@ -608,21 +597,9 @@ def sharded_spd_inverse(mesh, neg_A, w_col, method: Optional[str] = None):
 def sharded_inverse_of_system(mesh, A, w_col, method: Optional[str] = None) -> RowSharded:
     """:func:`sharded_spd_inverse` of ``-A`` from the system ``A`` itself
     (the negation folds into the column scaling, so no negated copy is
-    made)."""
+    made).  ``A`` is only read: it stays the caller's, for the
+    refinement residuals."""
     return _sharded_inverse(mesh, A, w_col, 1.0, method)
-
-
-def _sharded_dense_ceiling(single_device_max: int) -> int:
-    """The dense-path interior ceiling, raised by ``sqrt(n_model)`` when a
-    factorization mesh with a model axis > 1 is installed: the system and
-    its explicit inverse are stored row-sharded, so each slot holds
-    ``n^2 / n_model`` of each, and the largest film the slots hold densely
-    together grows by ``sqrt(n_model)``."""
-    mesh = _FACTOR_MESH
-    n_model = 1 if mesh is None else int(mesh.shape["model"])
-    if n_model <= 1:
-        return single_device_max
-    return int(single_device_max * n_model**0.5)
 
 
 def batch_mesh(sharding, torch_device) -> DeviceMesh:

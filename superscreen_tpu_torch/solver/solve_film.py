@@ -44,7 +44,8 @@ from ..device import Device
 from ..io import new_group
 from ..ops import kernels, linalg
 from ..ops.fem import COO, gather_matvec
-from ..parallel.rows import RowSharded, row_bounds
+from ..ops.rows import PEAK_BLOCKS, RowSharded, row_bounds
+from ..parallel import sharding
 from ..solution import FilmSolution
 from .utils import FilmInfo, stream_from_terminal_current
 
@@ -76,6 +77,10 @@ __all__ = [
 #: ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N`` (read when the model is
 #: factorized) sets the ceiling directly.
 MAX_MATERIALIZED_BYTES = 67_500_000_000
+
+#: ``(ni, ni)`` buffers at the peak of a single-device factorization, which
+#: :data:`MAX_MATERIALIZED_BYTES` is sized for.
+LU_PEAK_BUFFERS = 3
 
 
 @dataclass
@@ -437,7 +442,24 @@ def max_materialized_n(dtype: torch.dtype) -> int:
     if ceiling is not None:
         return int(ceiling)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return math.isqrt(MAX_MATERIALIZED_BYTES // (3 * itemsize))
+    return math.isqrt(MAX_MATERIALIZED_BYTES // (LU_PEAK_BUFFERS * itemsize))
+
+
+def _sharded_dense_ceiling(single_device_max: int) -> int:
+    """The low-memory dense ceiling with a factorization mesh installed.
+    A slot of the row-sharded inverse holds at its peak
+    :data:`ops.rows.PEAK_BLOCKS` matrices of ``ni^2 / n_model`` entries
+    each, the system among them, where one device holds
+    :data:`LU_PEAK_BUFFERS` of ``ni^2``; the same bytes per slot give the
+    ceiling ``single_device_max * sqrt(n_model * LU_PEAK_BUFFERS /
+    PEAK_BLOCKS)``, the JAX package's ``sqrt(n_model)`` for the port's
+    three.  Without a mesh whose model axis exceeds 1 the ceiling is the
+    single-device one."""
+    mesh = sharding.factorization_mesh()
+    n_model = 1 if mesh is None else int(mesh.shape["model"])
+    if n_model <= 1:
+        return single_device_max
+    return int(single_device_max * math.sqrt(n_model * LU_PEAK_BUFFERS / PEAK_BLOCKS))
 
 
 def factorize_linear_systems(
@@ -466,7 +488,6 @@ def factorize_linear_systems(
         ``{film: TerminalSystems}``.
     """
     method = linalg.large_factor_method()
-    from ..parallel import sharding
 
     def factor(A):
         return None if assemble_only else linalg.factor_system(A)
@@ -491,7 +512,7 @@ def factorize_linear_systems(
             }
             single_device_max = max_materialized_n(info.weights.dtype)
             if not assemble_only and (
-                method == "cg" or len(interior) > sharding._sharded_dense_ceiling(single_device_max)
+                method == "cg" or len(interior) > _sharded_dense_ceiling(single_device_max)
             ):
                 film_systems[film_name] = LinearSystem(
                     A=None,
@@ -501,12 +522,12 @@ def factorize_linear_systems(
             elif not assemble_only and len(interior) > single_device_max:
                 # Dense only because the installed mesh's slots together
                 # hold it: assembled and inverted row-sharded.
-                slots = list(sharding.factorization_mesh().devices[0])
-                A = _build_system_2d_lowmem_rows(info, interior, sites, slots)
+                mesh = sharding.factorization_mesh()
+                A = _build_system_2d_lowmem_rows(info, interior, sites, list(mesh.devices[0]))
                 w_col = info.weights[torch.as_tensor(interior, device=sites.device)]
+                M = sharding.sharded_inverse_of_system(mesh, A, w_col)
                 film_systems[film_name] = LinearSystem(
-                    A=A, indices=interior,
-                    lu_piv=linalg.factor_system(A, w_col, force_sharded=True),
+                    A=A, indices=interior, lu_piv=("inv", M, w_col)
                 )
             else:
                 A = _build_system_2d_lowmem(info, interior, sites)

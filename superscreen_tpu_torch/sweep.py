@@ -31,7 +31,7 @@ from .geometry import close_curve, path_vectors
 from .ops import kernels
 from .ops import linalg
 from .ops.fem import gather_matvec_batch
-from .parallel.rows import RowSharded, row_bounds
+from .ops.rows import RowSharded, row_bounds
 from .parallel.sharding import DataSharded, ShardedFilmData
 from .solution import FilmSolution, Solution, Vortex
 from .sources import ConstantField
@@ -49,11 +49,12 @@ class FilmSweepData:
         name: Film name.
         n: Number of mesh sites.
         interior: ``(ni,)`` mesh indices of the film's system.
-        lu, perm: LU factorization of ``-A`` (packed factors and row
-            permutation, see :func:`ops.linalg.factor_system`); None for
-            a matrix-free film.  For an ``"inv"`` film, the explicit
-            solution operator ``M`` (a :class:`parallel.rows.RowSharded`)
-            and the column weights ``w``.
+        factors: The film's factors of ``-A`` as
+            :func:`ops.linalg.lu_solve` takes them (the system's
+            ``lu_piv``): ``(lu, perm)``, the packed LU and row
+            permutation, or ``("inv", M, w)`` for an ``"inv"`` film, the
+            explicit solution operator (an :class:`ops.rows.RowSharded`)
+            and the column weights; None for a matrix-free film.
         A: ``(ni, ni)`` film system (for the refinement residual); None
             for a matrix-free film; row-sharded for an ``"inv"`` film.
         Qw: ``(n, n)`` Brandt kernel with the vertex areas folded into its
@@ -96,15 +97,14 @@ class FilmSweepData:
 
     In the float64 film data of a high-precision model (see
     :mod:`superscreen_tpu_torch.solver.refine`) ``A`` is float64 while
-    ``lu`` stays the float32 factorization: the film solve is then
+    ``factors`` stay the float32 factorization: the film solve is then
     :func:`ops.linalg.refined_solve` with the factors as preconditioner.
     """
 
     name: str
     n: int
     interior: torch.Tensor
-    lu: Optional[torch.Tensor]
-    perm: Optional[torch.Tensor]
+    factors: Optional[tuple]
     A: Optional[torch.Tensor]
     Qw: Optional[torch.Tensor]
     weights: torch.Tensor
@@ -267,19 +267,16 @@ def film_sweep_data(model, film_name: str, brandt_diag=None) -> FilmSweepData:
     if info.kernel is not None and not terminal:
         Qw = info.kernel.mul_(w[None, :])
     info.kernel = None
-    if system.cg_op is None and linalg.is_inverse(system.lu_piv):
-        (_, lu, perm), fac_kind = system.lu_piv, "inv"
-    elif system.cg_op is None:
-        (lu, perm), fac_kind = system.lu_piv, "lu"
+    if system.cg_op is None:
+        factors, fac_kind = system.lu_piv, "inv" if linalg.is_inverse(system.lu_piv) else "lu"
     else:
         # A non-symmetric operator (inhomogeneous Lambda) needs BiCGStab.
-        (lu, perm), fac_kind = (None, None), "bicgstab" if system.cg_op["nonsym"] else "cg"
+        factors, fac_kind = None, "bicgstab" if system.cg_op["nonsym"] else "cg"
     return FilmSweepData(
         name=film_name,
         n=n,
         interior=torch.as_tensor(system.indices, device=torch_device),
-        lu=lu,
-        perm=perm,
+        factors=factors,
         A=system.A,
         Qw=Qw,
         weights=w,
@@ -407,14 +404,6 @@ def _check_inversion(name: str, A: torch.Tensor, h: torch.Tensor, gf: torch.Tens
         )
 
 
-def _factors(data: FilmSweepData):
-    """The film's factors as :func:`ops.linalg.lu_solve` takes them:
-    ``(lu, perm)``, or ``("inv", M, w)`` for an ``"inv"`` film."""
-    if data.fac_kind == "inv":
-        return ("inv", data.lu, data.perm)
-    return (data.lu, data.perm)
-
-
 def _solve_film_batch(
     data: FilmSweepData,
     Hz_total: torch.Tensor,  # (B, n): applied + field from other films
@@ -434,15 +423,13 @@ def _solve_film_batch(
         gf = linalg.matrix_free_solve_host(data.cg_op, hT)
     else:
 
-        factors = _factors(data)
-
         def solve(rhs):
-            return linalg.lu_solve(factors, rhs)
+            return linalg.lu_solve(data.factors, rhs)
 
-        if data.lu.dtype != data.A.dtype:
+        if linalg.factors_dtype(data.factors) != data.A.dtype:
             # A high-precision film: float64 system, float32 factors.
             gf = linalg.refined_solve(
-                data.A, linalg.mixed_preconditioner(factors, data.A.dtype), hT
+                data.A, linalg.mixed_preconditioner(data.factors, data.A.dtype), hT
             )
         else:
             gf = solve(hT)

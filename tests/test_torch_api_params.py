@@ -93,8 +93,8 @@ ALLOWED = {
         )
     },
     **{
-        ("param", "sweep.FilmSweepData", name): "FilmSweepData's padding fields and interior_sites; LU, permutation and Q diag(w) of the port"
-        for name in ("<order>", "n_valid", "fac_a", "fac_b", "Q", "interior_sites", "lu", "perm", "Qw")
+        ("param", "sweep.FilmSweepData", name): "FilmSweepData's padding fields and interior_sites; the factors tuple and Q diag(w) of the port"
+        for name in ("<order>", "n_valid", "fac_a", "fac_b", "Q", "interior_sites", "factors", "Qw")
     },
 }
 

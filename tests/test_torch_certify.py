@@ -94,10 +94,10 @@ def _shared_data(ref_data):
     for name, d in ref_data.items():
         nv = int(np.asarray(d.n_valid))
         A = None if d.A is None else _t(d.A)[:nv, :nv].contiguous()
-        lu, perm = (None, None) if A is None else linalg.factor_system(A)
+        factors = None if A is None else linalg.factor_system(A)
         empty = torch.zeros((0, 1))
         out[name] = port_sweep.FilmSweepData(
-            name=name, n=int(d.n), interior=_t(d.interior)[:nv].long(), lu=lu, perm=perm, A=A,
+            name=name, n=int(d.n), interior=_t(d.interior)[:nv].long(), factors=factors, A=A,
             Qw=None, weights=_t(d.weights), gx_idx=empty.long(), gx_w=empty, gy_idx=empty.long(),
             gy_w=empty, sites=_t(d.sites), z0=float(d.z0), hole_masks=_t(d.hole_masks),
             hole_ha_vecs=_t(d.hole_ha_vecs), hole_names=list(d.hole_names),

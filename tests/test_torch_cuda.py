@@ -1117,7 +1117,7 @@ def test_row_sharded_residual_f64_on_the_card(cuda, n, parts, k):
     """RowSharded.residual_f64 on aligned and unaligned row blocks (each
     block a view of the matrix) against the plain version, one launch per
     block."""
-    from superscreen_tpu_torch.parallel.rows import RowSharded
+    from superscreen_tpu_torch.ops.rows import RowSharded
 
     rng = np.random.default_rng(n + k)
     A = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=cuda)
@@ -1141,7 +1141,7 @@ def test_sharded_spd_inverse_on_the_card(cuda, method):
     """The row-sharded explicit inverse in float64 against torch.linalg.inv,
     with several pivot panels per slot."""
     from superscreen_tpu_torch import parallel
-    from superscreen_tpu_torch.parallel import rows
+    from superscreen_tpu_torch.ops import rows
 
     rng = np.random.default_rng(4)
     n = 600
@@ -1152,9 +1152,8 @@ def test_sharded_spd_inverse_on_the_card(cuda, method):
     for devices in _mesh_devices(2):
         mesh = parallel.make_mesh(n_data=1, n_model=2, devices=devices)
         if method == "schur":
-            P = rows.scaled_rows(rows.RowSharded.split(neg_A, devices),
-                                 torch.as_tensor(w, device=cuda), -1.0)
-            M = rows.schur_inverse_rows(P, torch.as_tensor(w, device=cuda), leaf=128)
+            M = rows.schur_inverse_rows(rows.RowSharded.split(neg_A, devices),
+                                        torch.as_tensor(w, device=cuda), sign=-1.0, leaf=128)
         else:
             M = parallel.sharded_spd_inverse(mesh, neg_A, torch.as_tensor(w, device=cuda), method)
         assert [b.device for b in M.blocks] == [torch.device(d) for d in devices]

@@ -188,7 +188,7 @@ def test_hp_systems_are_float64_twins_of_the_float32_systems(strip_systems):
     hp = model.hp_model
     assert hp.film_systems["strip"].lu_piv[0].dtype == torch.float32
     assert hp.film_data["strip"].A.dtype == torch.float64
-    assert hp.film_data["strip"].lu is model.film_data["strip"].lu
+    assert hp.film_data["strip"].factors[0] is model.film_data["strip"].factors[0]
 
 
 def test_hp_model_is_cached_and_follows_the_drive_state():
@@ -297,9 +297,10 @@ def test_check_inversion_is_silent_on_a_sound_model(ring_model, caplog, high_pre
 def test_check_inversion_warns_on_a_corrupted_lu(ring_model, caplog):
     model = ring_model.copy()
     data = model.film_data["disk"]
-    corrupted = data.lu.clone()
+    lu, perm = data.factors
+    corrupted = lu.clone()
     corrupted.diagonal().mul_(1.5)
-    model.film_data = {"disk": replace(data, lu=corrupted)}
+    model.film_data = {"disk": replace(data, factors=(corrupted, perm))}
     field = st.sources.ConstantField(0.7)
     with caplog.at_level(logging.WARNING, logger="solve"):
         st.solve(model=model, applied_field=field, torch_device="cpu")

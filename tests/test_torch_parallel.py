@@ -4,9 +4,14 @@ on the CPU: the port on ``make_mesh(devices=["cpu"] * 8)``, the JAX package
 on its 8 virtual devices (``tests/conftest.py``), the same seeded inputs,
 and the JAX tests' own bars (``tests/test_sweep.py``)."""
 
+import importlib
+import weakref
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import jax
 import superscreen_tpu as sc
@@ -17,9 +22,11 @@ from superscreen_tpu.ops import linalg as jlinalg
 from superscreen_tpu.sweep import _film_sweep_data, _run_sweep as jax_run_sweep
 from superscreen_tpu_torch import parallel as ppar
 from superscreen_tpu_torch.ops import kernels as pkernels
-from superscreen_tpu_torch.parallel import rows as prows
+from superscreen_tpu_torch.ops import rows as prows
 from superscreen_tpu_torch.parallel import sharding as psharding
 from superscreen_tpu_torch.sweep import _run_sweep as port_run_sweep
+
+solve_film = importlib.import_module("superscreen_tpu_torch.solver.solve_film")
 
 torch.set_num_threads(2)
 
@@ -264,41 +271,108 @@ def test_schur_inverse_panels_and_leaf(n, leaf):
     w = 0.5 + rng.random(n)
     neg_A = -(P * w[None, :])
     M_chol = np.asarray(jlinalg._jax_chol_explicit_inverse(neg_A, w, block=64))
-    rows = prows.RowSharded.split(torch.as_tensor(P), ["cpu"] * 4)
-    M_schur = np.asarray(prows.schur_inverse_rows(rows, torch.as_tensor(w), leaf=leaf))
+    rows = prows.RowSharded.split(torch.as_tensor(neg_A), ["cpu"] * 4)
+    M_schur = np.asarray(prows.schur_inverse_rows(rows, torch.as_tensor(w), sign=-1.0, leaf=leaf))
     assert np.abs(M_schur - M_chol).max() / np.abs(M_chol).max() < 1e-9
+
+
+def _inverse_inputs(n, seed=3):
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(n, n))
+    w = 0.5 + rng.random(n)
+    return torch.as_tensor(-((G @ G.T / n + 3.0 * np.eye(n)) * w[None, :])), torch.as_tensor(w)
 
 
 def test_sharded_inverse_products_run_panel_by_panel(monkeypatch):
     """No slot holds more than its own rows or one incoming row block
     (n_p^2 / n_model elements) at any point of the sharded inverse: every
     tensor that reaches a slot and every operand and result of a panel
-    product is recorded."""
+    product with the symmetrised system is recorded."""
     n, n_model = 96, 4
     largest = []
-    send, panel = prows._send, prows._panel_matmul
+    send, panel = prows._send, prows._sym_panel
 
     def recorded_send(t, device):
         largest.append(t.numel())
         return send(t, device)
 
-    def recorded_panel(rows, right):
-        out = panel(rows, right)
-        largest.extend([rows.numel(), out.numel()] + [b.numel() for b in right.blocks])
+    def recorded_panel(A, inv_w, sign, parts):
+        out = panel(A, inv_w, sign, parts)
+        largest.extend([p.numel() for p in parts] + [y.numel() for y in out])
         return out
 
     monkeypatch.setattr(prows, "_send", recorded_send)
-    monkeypatch.setattr(prows, "_panel_matmul", recorded_panel)
-    rng = np.random.default_rng(3)
-    G = rng.normal(size=(n, n))
-    w = 0.5 + rng.random(n)
-    neg_A = -((G @ G.T / n + 3.0 * np.eye(n)) * w[None, :])
+    monkeypatch.setattr(prows, "_sym_panel", recorded_panel)
+    neg_A, w = _inverse_inputs(n)
     mesh = ppar.make_mesh(n_data=1, n_model=n_model, devices=["cpu"] * n_model)
     for method in ("schur", "schulz"):
         largest.clear()
         M = ppar.sharded_spd_inverse(mesh, neg_A, w, method=method)
-        assert np.allclose(np.asarray(M), np.linalg.inv(neg_A), rtol=1e-9, atol=1e-12)
+        assert np.allclose(np.asarray(M), np.linalg.inv(neg_A.numpy()), rtol=1e-9, atol=1e-12)
         assert largest and max(largest) <= n * n // n_model, (method, max(largest))
+
+
+class _LiveBytes(TorchDispatchMode):
+    """The most bytes that the storages made by the ops run under it hold
+    at once (a storage is alive while a tensor on it is referenced)."""
+
+    def __init__(self, ignore=()):
+        super().__init__()
+        self.ignore = {t.untyped_storage().data_ptr() for t in ignore}
+        self.live = {}
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.live = {
+            k: (size, refs) for k, (size, refs) in self.live.items() if any(r() is not None for r in refs)
+        }
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            storage = t.untyped_storage()
+            key = storage.data_ptr()
+            if key in self.ignore or storage.nbytes() == 0:
+                continue
+            self.live.setdefault(key, (storage.nbytes(), []))[1].append(weakref.ref(t))
+        self.peak = max(self.peak, sum(size for size, _ in self.live.values()))
+        return out
+
+
+@pytest.mark.parametrize("method", ["schur", "schulz"])
+def test_sharded_inverse_memory_within_its_ceiling(monkeypatch, method):
+    """The sharded inverse holds at most PEAK_BLOCKS row-sharded n x n
+    matrices at once, the caller's system among them, plus panels: every
+    storage its ops make is tracked while it lives, over 4 slots with
+    8-column panels.  At the raised dense ceiling of a 2-slot mesh that
+    footprint per slot stays within the single-device budget
+    MAX_MATERIALIZED_BYTES."""
+    n, n_model, width = 256, 4, 8
+    monkeypatch.setattr(prows, "PANEL", width)
+    monkeypatch.setattr(prows, "SCHULZ_ITERS", 2)
+    neg_A, w = _inverse_inputs(n)
+    mesh = ppar.make_mesh(n_data=1, n_model=n_model, devices=["cpu"] * n_model)
+    with _LiveBytes(ignore=[neg_A, w]) as tracker:
+        M = ppar.sharded_spd_inverse(mesh, neg_A, w, method=method)
+    if method == "schur":
+        assert np.allclose(np.asarray(M), np.linalg.inv(neg_A.numpy()), rtol=1e-9, atol=1e-12)
+    matrix = n * n * 8
+    # Each slot's A_j^T V_j, one gathered (n, width) panel, and a few
+    # (n / n_model, width) pieces: well under one more matrix.
+    panels = (n_model + 6) * n * width * 8
+    assert panels <= matrix // 3
+    assert tracker.peak <= (prows.PEAK_BLOCKS - 1) * matrix + panels, tracker.peak / matrix
+    assert tracker.peak > (prows.PEAK_BLOCKS - 2) * matrix  # the tracker sees the blocks
+
+    monkeypatch.delenv("SUPERSCREEN_TPU_MAX_MATERIALIZED_N", raising=False)
+    ppar.set_factorization_mesh(ppar.make_mesh(n_data=1, n_model=2, devices=["cpu"] * 2))
+    try:
+        single = solve_film.max_materialized_n(torch.float32)
+        ceiling = solve_film._sharded_dense_ceiling(single)
+    finally:
+        ppar.set_factorization_mesh(None)
+    assert ceiling > single
+    assert prows.PEAK_BLOCKS * ceiling**2 * 4 / 2 <= solve_film.MAX_MATERIALIZED_BYTES
 
 
 def test_row_sharded_gathers_and_aliases():
@@ -338,12 +412,12 @@ def test_factorization_mesh_install_and_clear():
     try:
         assert ppar.factorization_mesh() is mesh
         assert psharding.factorization_row_sharding().spec == ("model", None)
-        assert psharding._sharded_dense_ceiling(1000) == int(1000 * 2**0.5)
+        assert solve_film._sharded_dense_ceiling(1000) == int(1000 * 2**0.5)
     finally:
         ppar.set_factorization_mesh(None)
     assert ppar.factorization_mesh() is None
     assert psharding.factorization_row_sharding() is None
-    assert psharding._sharded_dense_ceiling(1000) == 1000
+    assert solve_film._sharded_dense_ceiling(1000) == 1000
     with pytest.raises(ValueError, match="factorization mesh"):
         st.ops.linalg.factor_system(torch.eye(3), torch.ones(3), force_sharded=True)
 

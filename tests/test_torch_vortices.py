@@ -239,7 +239,7 @@ def test_set_vortices_rebuilds_only_the_vortex_columns(ring):
     solution = st.solve(model=model, applied_field=field, torch_device="cpu")[-1]
     rebuilt = model.film_data["ring"]
     assert rebuilt is not data and rebuilt.vortex_cols.shape == (len(rebuilt.interior), 1)
-    assert rebuilt.Qw is data.Qw and rebuilt.lu is data.lu  # nothing else was rebuilt
+    assert rebuilt.Qw is data.Qw and rebuilt.factors is data.factors  # nothing else was rebuilt
     assert _get_sweep_data(model)["ring"] is rebuilt
     direct = st.solve(port, applied_field=field, vortices=[vortex], torch_device="cpu")[-1]
     np.testing.assert_allclose(
