@@ -18,8 +18,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    same package on the CPU in float64 (plain PyTorch kernels).
 4. The low-memory path at real size: the four-ring stack of bench.py's
    build_large at 27,000 sites per film, every film above
-   MAX_DENSE_KERNEL_SIZE, factorized (materialized interior systems, LU)
-   and solved with five coupling rounds in float32.  No film may hold a
+   MAX_DENSE_KERNEL_SIZE, factorized (materialized interior systems; above
+   LU_MAX_N_TPU = 12,288 unknowns on the card every film of phases 2 to 17
+   takes SUPERSCREEN_TPU_LARGE_FACTOR's default route, the explicit
+   inverse "inv", but for phase 8's films, whose Lambda is inhomogeneous
+   and which keep LU) and solved with five coupling rounds in float32.  No film may hold a
    dense kernel, the q_apply kernel must have run at least three times per
    film, and every final relative residual must be at most 1e-4.
 5. The same stack with SUPERSCREEN_TPU_LARGE_FACTOR=cg (matrix-free CG):
@@ -195,6 +198,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    smallest interior of phase 4's stack (every film ``"inv"``, ``A`` and
    ``M`` in row blocks, ``solve()`` within 1e-4 of phase 4's); and config
    5 over two data rows against phase 13's scan (1e-5).
+18. The large-film factorization routes in turns on phase 2's dense stack
+   and phase 4's 27k stack: "inv", "chol", "schur", "schulz" and LU (LU
+   reached by raising LU_MAX_N_TPU inside the phase).  For each route the
+   factorize wall time and the most (ni, ni) buffers one film's
+   factorization held at once (at most 3 for "inv" and "chol", 4 for
+   "schur" and "schulz": the budgets of their materialized ceilings), the
+   warm B = 1 ``solve()``, ``solve_many`` at B = 8 with five rounds per
+   point, the solve()'s streams within 1e-6 of LU's (of each film's
+   max|g|), the sweep's distance to LU's sweep and the default sweep
+   against SUPERSCREEN_TPU_INNER_REFINE=2 printed, and every film's final
+   residual at most 1e-4; a torch.profiler table of the default route's
+   warm sweep and solve with the triangular-solve kernels that remain.
 
 Phases 2-11, 15 and 16 hold ``coupling="auto"`` to the exact pairwise coupling
 (SUPERSCREEN_TPU_FFT_COUPLING_MIN_N set beyond any mesh): they measure the
@@ -882,12 +897,14 @@ def _profile_solve(torch, st, model, label):
     _profile(torch, lambda: _solve(torch, st, model)[1], label)
 
 
-def _profile(torch, run, label, top=8):
+def _profile(torch, run, label, top=8, watch=()):
     """``run`` (which returns its wall time, ended by a synchronise) once to
     warm up and once under torch.profiler: prints its wall time (profiled),
     the device time (the kernels' summed self time), the device's idle
     share of the wall, and the kernels that take the most device time, with
-    their launch counts.  Returns the device time in ms."""
+    their launch counts, and for each name in ``watch`` the device time and
+    launches of the kernels whose name holds it.  Returns the device time
+    in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm
@@ -906,6 +923,13 @@ def _profile(torch, run, label, top=8):
         print(
             f"{label}   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({e.self_device_time_total / 1e3 / device_ms:6.1%}) x{e.count:<6d} {e.key[:90]}"
+        )
+    for name in watch:
+        hits = [e for e in events if name in e.key.lower()]
+        print(
+            f"{label}   kernels named *{name}*: {len(hits)} kinds, "
+            f"{sum(e.count for e in hits)} launches, "
+            f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms"
         )
     return device_ms
 
@@ -948,8 +972,9 @@ def phase_solve(torch, st, cuda_kernels, device):
 
 def phase_lowmem(torch, st, cuda_kernels, device):
     """The low-memory path at real size: every film above
-    MAX_DENSE_KERNEL_SIZE, materialized interior systems, LU.  Returns the
-    model, its solutions and the launch counts."""
+    MAX_DENSE_KERNEL_SIZE, materialized interior systems, the default
+    large-film route ("inv").  Returns the model, its solutions and the
+    launch counts."""
     from superscreen_tpu_torch.ops import linalg
     from superscreen_tpu_torch.solver.utils import MAX_DENSE_KERNEL_SIZE
 
@@ -962,7 +987,7 @@ def phase_lowmem(torch, st, cuda_kernels, device):
     for name in device.films:
         info, data = model.film_info[name], model.film_data[name]
         _require(not info.dense_kernel and info.kernel is None, f"{name} holds a dense kernel")
-        _require(data.Qw is None and data.fac_kind == "lu", f"{name} not on the low-memory LU path")
+        _require(data.Qw is None and data.fac_kind == "inv", f"{name} not on the low-memory 'inv' path")
     _require(launches["q_apply"] >= 3 * len(device.films), launches)
     _require(launches["q_matrix"] >= len(device.films), launches)
     _require(launches["biot_savart_batch"] >= 12 * ITERATIONS, launches)
@@ -975,24 +1000,27 @@ def phase_lowmem(torch, st, cuda_kernels, device):
         torch, "phase4 CG-matvec shape",
         device.meshes[name].sites[model.film_systems[name].indices], 1,
     )
-    _profile_solve(torch, st, model, "phase4 profile of the warm LU solve")
+    _profile_solve(torch, st, model, "phase4 profile of the warm 'inv' solve")
     # The peak of one film's factorization, for the materialized ceiling:
-    # A, the -A handed to lu_factor, the packed LU and the solver's
-    # workspace, per ni^2.
+    # LU holds A, the -A handed to lu_factor, the packed LU and the
+    # solver's workspace; "inv" A, the buffer its inverse is built in and
+    # panels.  Per ni^2.
     name = next(iter(device.films))
     A = model.film_systems[name].A
+    w = model.film_info[name].weights[model.film_data[name].interior]
     ni = A.shape[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    lu_perm = linalg.factor_system(A)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base + A.numel() * A.element_size()
-    del lu_perm
-    print(
-        f"phase4 factor_system peak at ni={ni}: {peak / 1e9:.3f} GB, "
-        f"{peak / ni**2:.3f} bytes per ni^2 ({A.dtype})"
-    )
+    for route, args in (("LU", (A,)), ("'inv'", (A, w))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        factors = linalg.factor_system(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base + A.numel() * A.element_size()
+        del factors
+        print(
+            f"phase4 factor_system peak at ni={ni} by {route}: {peak / 1e9:.3f} GB, "
+            f"{peak / ni**2:.3f} bytes per ni^2 ({A.dtype})"
+        )
     return model, solutions, launches
 
 
@@ -1085,7 +1113,10 @@ def phase_cg(torch, st, cuda_kernels, device, lu_solutions):
     # true residual under the bar of the LU films.
     _check_residuals(torch, model, solutions[-1], "phase5")
     err = _stream_error(solutions, lu_solutions)
-    print(f"phase5 max relative stream difference to LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})")
+    print(
+        f"phase5 max relative stream difference to phase 4's 'inv' solve {err:.3e} "
+        f"(limit {CG_STREAM_REL_MAX:.0e})"
+    )
     _require(err <= CG_STREAM_REL_MAX, f"CG stream difference {err:.3e}")
     _profile_solve(torch, st, model, "phase5 profile of the warm CG solve")
 
@@ -2095,8 +2126,9 @@ def phase_certify(torch, st, cuda_kernels, model, large):
         warned = [r.getMessage() for r in records if "Unable to solve" in r.getMessage()]
         return warned, seconds
 
-    # high_precision: float32 LU + float64 systems and refinement, against
-    # the direct float64 LU of the same stack, both on the card.
+    # high_precision: float32 factors + float64 systems and refinement,
+    # against a direct float64 factorization of the same stack ("inv"),
+    # both on the card.
     def hp_solve():
         return st.solve(
             model=model, applied_field=st.sources.ConstantField(1.0), iterations=ITERATIONS,
@@ -2116,7 +2148,7 @@ def phase_certify(torch, st, cuda_kernels, model, large):
         f"phase10 solve(high_precision=True, iterations={ITERATIONS}): cold {hp_cold_s:.3f} s "
         f"(float64 assembly per film {assembly}), warm {hp_warm_s:.4f} s, launches of the cold "
         f"solve {hp_launches}; peak_memory_GB={hp_peak:.3f} with {resident:.3f} resident before "
-        f"(the float32 model: A and LU)"
+        f"(the float32 model: A and its factors)"
     )
     _require(all(fs.stream.dtype == np.float64 for fs in hp[-1].film_solutions.values()), "hp dtype")
     _profile(torch, lambda: _wall(torch, hp_solve)[1], "phase10 profile of the warm high-precision solve")
@@ -2149,7 +2181,7 @@ def phase_certify(torch, st, cuda_kernels, model, large):
     f64_peak = torch.cuda.max_memory_allocated() / 1e9
     f64_warm_s = min(_solve(torch, st, model64)[1] for _ in range(2))
     print(
-        f"phase10 direct float64 LU of the same stack: factorize {factor64_s:.3f} s, solve cold "
+        f"phase10 direct float64 factorization ('inv') of the same stack: factorize {factor64_s:.3f} s, solve cold "
         f"{f64_cold_s:.4f} s, warm {f64_warm_s:.4f} s; peak_memory_GB={f64_peak:.3f} with "
         f"{resident:.3f} resident before"
     )
@@ -2858,9 +2890,32 @@ def phase_scanning(torch, st, kernels, cuda_kernels):
     )
     _require(ls_err <= LANDSCAPE_TOL, f"landscape self-energy {ls_err:.3e}")
     _require(bool(np.all(np.isfinite(landscape.total(1.0)))), "landscape")
+    _inverse_diagonal_readoff(torch, st, disk, landscape.indices[k])
     context = dict(sample=sample, positions=positions, M=M,
                    squid_solution={"float32": squid_solution, "float64": squid64_solution})
     return launches, context
+
+
+def _inverse_diagonal_readoff(torch, st, disk, site):
+    """What the JAX package's landscape reads for an "inv" film, -diag(M)
+    unrefined, against the refined identity solve the port takes, at the
+    landscape's check site: printed, no bar (ROADMAP 3.16)."""
+    from superscreen_tpu_torch.ops import linalg
+
+    model = st.factorize_model(device=disk, current_units="mA", torch_device=CARD)
+    system = model.film_systems["disk"]
+    if linalg.factor_kind(system.lu_piv) != "inv":
+        print(f"phase13 landscape film factorized as {linalg.factor_kind(system.lu_piv)!r}")
+        return
+    j = int(np.searchsorted(system.indices, site))
+    e = torch.zeros((len(system.indices), 1), dtype=system.A.dtype, device=CARD)
+    e[j] = 1.0
+    refined = float(linalg.lu_solve_refined(system.A, system.lu_piv, e)[j, 0])
+    read = float(system.lu_piv[1][j, j])
+    print(
+        f"phase13 landscape film 'inv' (ni={len(system.indices)}): -diag(M) read off at the check "
+        f"site against the refined identity solve {abs(read - refined) / abs(refined):.3e}"
+    )
 
 
 def _weak_spot_lambda(x, y):
@@ -3990,6 +4045,126 @@ def phase_parallel(torch, st, kernels, cuda_kernels, dense_device, large_device,
     print(f"phase17 wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 18: the large-film factorization routes in turns, LU first (the
+# reference).  solve() refines every round on every route, so the routes'
+# streams differ from LU's by the refinement's float32 floor.
+ROUTES = ("lu", "inv", "chol", "schur", "schulz")
+ROUTE_STREAM_REL_MAX = 1e-6
+
+
+@contextlib.contextmanager
+def _route(name):
+    """Inside the block the films on the card above LU_MAX_N_TPU take
+    ``name``: a value of SUPERSCREEN_TPU_LARGE_FACTOR, or ``"lu"``
+    (LU_MAX_N_TPU raised past any film)."""
+    from superscreen_tpu_torch.ops import linalg
+
+    if name != "lu":
+        with _environ(SUPERSCREEN_TPU_LARGE_FACTOR=name):
+            yield
+        return
+    previous = linalg.LU_MAX_N_TPU
+    linalg.LU_MAX_N_TPU = 2**62
+    try:
+        yield
+    finally:
+        linalg.LU_MAX_N_TPU = previous
+
+
+@contextlib.contextmanager
+def _factor_peaks(torch, peaks):
+    """Inside the block every ``ops.linalg.factor_system`` call appends the
+    most device bytes it held at once, its system ``A`` included, in
+    ``(ni, ni)`` matrices of ``A``'s dtype."""
+    from superscreen_tpu_torch.ops import linalg
+
+    factor = linalg.factor_system
+
+    def recorded(A, *args, **kwargs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = factor(A, *args, **kwargs)
+        torch.cuda.synchronize()
+        matrix = A.numel() * A.element_size()
+        peaks.append((torch.cuda.max_memory_allocated() - base + matrix) / matrix)
+        return out
+
+    linalg.factor_system = recorded
+    try:
+        yield
+    finally:
+        linalg.factor_system = factor
+
+
+def _run_route(torch, st, device, route, label, profile):
+    """One route on one stack: factorize (wall, peak buffers), warm solve(),
+    the B = 8 sweep (residuals, warm time) and the same sweep with refined
+    inner rounds.  Returns the last round's solution, the sweep and the
+    numbers of the table row."""
+    from superscreen_tpu_torch.solver.solve_film import INVERSE_PEAK_BUFFERS, LU_PEAK_BUFFERS
+
+    fields = [st.sources.ConstantField(v) for v in SWEEP_FIELDS]
+    torch.cuda.empty_cache()
+    peaks = []
+    with _route(route), _factor_peaks(torch, peaks):
+        model, factor_s = _wall(torch, lambda: st.factorize_model(
+            device=device, current_units="uA", circulating_currents={"hole0": "1 mA"},
+            torch_device=CARD))
+    kinds = {data.fac_kind for data in model.film_data.values()}
+    _require(kinds == {"lu" if route == "lu" else ("chol" if route == "chol" else "inv")},
+             f"{label} {route}: {kinds}")
+    # The budget each route's materialized ceiling is sized for (LU's
+    # workspace takes it a hair past its three buffers: printed only).
+    budget = INVERSE_PEAK_BUFFERS if route in ("schur", "schulz") else LU_PEAK_BUFFERS
+    _require(route == "lu" or max(peaks) <= budget, f"{route} peak {max(peaks):.3f} matrices")
+    solutions = _solve(torch, st, model)[0]
+    solve_s = min(_solve(torch, st, model)[1] for _ in range(3))
+    _check_residuals(torch, model, solutions[-1], f"phase18 {label} {route} solve()")
+    kwargs = dict(model=model, applied_fields=fields, iterations=ITERATIONS)
+    sweep = _sweep(torch, st, **kwargs)[0]
+    sweep_s = min(_sweep(torch, st, **kwargs)[1] for _ in range(2))
+    _check_sweep_residuals(torch, model, sweep, f"phase18 {label} {route} sweep")
+    with _environ(SUPERSCREEN_TPU_INNER_REFINE="2"):
+        refined = _sweep(torch, st, **kwargs)[0]
+    if profile:
+        watch = ("trsm", "trsv", "gemv", "gemm")
+        _profile(torch, lambda: _solve(torch, st, model)[1],
+                 f"phase18 {label} profile of the warm solve ({route})", watch=watch)
+        _profile(torch, lambda: _sweep(torch, st, **kwargs)[1],
+                 f"phase18 {label} profile of the warm sweep ({route})", watch=watch)
+    row = dict(factor_s=factor_s, peak=max(peaks), budget=budget, solve_ms=solve_s * 1e3,
+               point_ms=sweep_s / len(fields) * 1e3, inner=_sweep_stream_error(sweep, refined))
+    del model
+    return solutions, sweep, row
+
+
+def phase_routes(torch, st, stacks):
+    """The routes in turns on each ``(label, device)`` of ``stacks``: every
+    route's solve() streams within ROUTE_STREAM_REL_MAX of LU's, residuals
+    at most RESIDUAL_MAX, and one table row per route."""
+    t_phase = time.perf_counter()
+    for label, device in stacks:
+        reference = None
+        for route in ROUTES:
+            solutions, sweep, row = _run_route(torch, st, device, route, label, route == "inv")
+            if reference is None:
+                reference = (solutions, sweep)
+            err = _stream_error(solutions, reference[0])
+            err_sweep = _sweep_stream_error(sweep, reference[1])
+            print(
+                f"phase18 {label} {route:6s}: factorize {row['factor_s']:.3f} s, peak "
+                f"{row['peak']:.3f} (ni, ni) buffers (budget {row['budget']}); warm solve() {row['solve_ms']:.2f} ms; "
+                f"sweep B={len(SWEEP_FIELDS)} {row['point_ms']:.2f} ms per point; solve() "
+                f"streams against LU's {err:.3e} (limit {ROUTE_STREAM_REL_MAX:.0e}); sweep "
+                f"against LU's sweep {err_sweep:.3e}; default sweep against "
+                f"SUPERSCREEN_TPU_INNER_REFINE=2 {row['inner']:.3e}"
+            )
+            _require(err <= ROUTE_STREAM_REL_MAX, f"{label} {route} against LU {err:.3e}")
+            del solutions, sweep
+    print(f"phase18 wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4056,7 +4231,10 @@ def main() -> int:
         phase_parallel(
             torch, st, kernels, cuda_kernels, device, large, sweep_ref, lu_solutions, scan_ref
         )
-    del device, stack_solution, large, transport, scan_ref
+    del stack_solution, transport, scan_ref, sweep_ref, lu_solutions
+    with _exact_coupling():
+        phase_routes(torch, st, [("dense 20k stack", device), ("low-memory 27k stack", large)])
+    del device, large
     # The sweep paths must have gone through their kernels too.
     _require(
         all(sweep_launches[k] > 0 for k in ("biot_savart_batch", "q_apply")), sweep_launches

@@ -23,10 +23,11 @@ per-point norms reach the host.
 
 Matrix-free films have no materialized system and are skipped with a
 note; so are vortex films, as in the JAX package (their response columns
-add rank-one terms outside the plain linear system).  A film factorized
-over a mesh (``"inv"``) is certified like an LU film, its correction
-solved by the row-sharded product ``M r`` and its residual formed on each
-slot's rows of ``A``, as the JAX package's certificate treats ``"inv"``.
+add rank-one terms outside the plain linear system).  ``"inv"`` and
+``"chol"`` films are certified like LU films, as the JAX package's
+certificate treats them: the correction is solved by the product ``M r``
+(row by row for a film inverted over a mesh, its residual formed on each
+slot's rows of ``A``) or by ``-cho_solve(L, r) / w``.
 """
 
 import time

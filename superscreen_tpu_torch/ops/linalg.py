@@ -1,39 +1,56 @@
 """Linear algebra for the film systems.
 
-Counterpart of the LU and matrix-free paths of
-``superscreen_tpu/ops/linalg.py``: ``-A`` is LU-factorized with
-:func:`torch.linalg.lu_factor` on the system's device, and solves use
-safeguarded fixed-count iterative refinement so that each returned column
-is the iterate with the smallest residual.  A film whose system is not
-materialized is solved on the matrix-free operator :func:`brandt_matvec`
-with a Jacobi preconditioner: by CG, or by BiCGStab when an inhomogeneous
-Lambda makes the operator non-symmetric.
+Counterpart of the factorization and solve paths of
+``superscreen_tpu/ops/linalg.py``.  :func:`factor_system` factorizes a film
+system ``A`` (solves are against ``-A``) by the JAX package's rule: a
+system on the CPU, one of at most :data:`LU_MAX_N_TPU` unknowns, or one
+without the column scaling ``w`` that makes ``P = A diag(1/w)`` symmetric
+positive definite is LU-factorized with :func:`torch.linalg.lu_factor`; a
+larger one on the card takes the route of ``SUPERSCREEN_TPU_LARGE_FACTOR``
+(:func:`large_factor_method`), each on ``P_s``, the symmetric part of
+``P``:
+
+- ``"inv"`` (the default): Cholesky, the triangular inverse and the
+  product ``P_s^-1 = L^-T L^-1``, in place in one ``(n, n)`` buffer beside
+  ``A`` (:func:`_chol_explicit_inverse`), as the solution operator
+  ``("inv", M, w)`` with ``M = -P_s^-1 / w``: a solve is one product.
+- ``"chol"``: the factor ``("chol", L, w)``; ``x = -cho_solve(L, h) / w``.
+- ``"schur"`` (and ``"cg"`` on a film that is materialized anyway) and
+  ``"schulz"``: the explicit inverse bodies of :mod:`.rows` on one slot,
+  ``("inv", M, w)``.
 
 A film past the single-device dense ceiling, kept dense because a
 factorization mesh is installed (:mod:`superscreen_tpu_torch.parallel`),
-has a row-sharded system (:class:`.rows.RowSharded`) and is factorized
-as ``("inv", M, w)``: the explicit solution operator ``M`` of
-:func:`parallel.sharding.sharded_spd_inverse`.  :func:`lu_solve` and the
-refined solves take either form of the factors.
+has a row-sharded system (:class:`.rows.RowSharded`) and is inverted over
+the mesh: ``("inv", M, w)`` with ``M`` row-sharded.  An installed mesh
+also takes every large film on the card, as in the JAX package.
+
+Solves use safeguarded fixed-count iterative refinement so that each
+returned column is the iterate with the smallest residual; :func:`lu_solve`
+and the refined solves take every form of the factors.  A film whose
+system is not materialized is solved on the matrix-free operator
+:func:`brandt_matvec` with a Jacobi preconditioner: by CG, or by BiCGStab
+when an inhomogeneous Lambda makes the operator non-symmetric.
 """
 
 import logging
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, rows
 from .fem import gather_matvec
 from .rows import RowSharded
 
 logger = logging.getLogger("solve")
 
 __all__ = [
+    "LU_MAX_N_TPU",
     "factor_system",
+    "factor_kind",
     "factors_dtype",
-    "is_inverse",
     "lu_solve",
     "lu_solve_refined",
     "refine_safeguarded",
@@ -55,6 +72,19 @@ __all__ = [
 CG_STATS = {"solves": 0, "iterations": 0, "max_residual": 0.0}
 
 
+#: Interior unknowns above which a film system on the card takes the route
+#: of ``SUPERSCREEN_TPU_LARGE_FACTOR`` instead of LU: the JAX package's
+#: threshold of the same name, so that the same films take the same route
+#: in both packages.  A system on the CPU always takes LU, as it does on
+#: the JAX package's CPU backend.
+LU_MAX_N_TPU = 12288
+
+#: Rows and columns of one block of the in-place Cholesky, triangular
+#: inverse and product of the ``"inv"`` and ``"chol"`` routes (the JAX
+#: package's block).
+FACTOR_BLOCK = 2048
+
+
 def _pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
     """The row permutation ``perm`` of LAPACK-style (1-based, sequential
     swap) pivots: ``M[perm] = L U`` for ``(LU, piv) = lu_factor(M)``."""
@@ -64,23 +94,123 @@ def _pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
     return torch.tensor(perm, device=piv.device)
 
 
+def _on_cpu(A) -> bool:
+    """True where ``A`` lies on the CPU, where every system is
+    LU-factorized (the JAX package's ``_on_cpu``)."""
+    return A.device.type == "cpu"
+
+
+def _spd_part(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``P_s = (P + P^T) / 2`` for ``P = A diag(1/w)``: one new ``(n, n)``
+    matrix, symmetrised in place piece by piece (``A`` is only read)."""
+    X = A / w[None, :]
+    rows._symmetrize_(RowSharded([X]))
+    return X
+
+
+def _cholesky_(X: torch.Tensor, block: int) -> torch.Tensor:
+    """The lower Cholesky factor of the SPD ``X``, in place, by block
+    columns of ``block``: each diagonal block's Cholesky, the panel below
+    it by a triangular solve, and the lower block columns of the trailing
+    matrix updated by one product each.  Only the lower triangle is read;
+    the upper is zeroed at the end.  A block that is not positive definite
+    raises (:func:`torch.linalg.cholesky`)."""
+    n = X.shape[0]
+    for j in range(0, n, block):
+        j1 = min(j + block, n)
+        L_jj = torch.linalg.cholesky(X[j:j1, j:j1])
+        X[j:j1, j:j1] = L_jj
+        if j1 == n:
+            break
+        panel = torch.linalg.solve_triangular(L_jj.mT, X[j1:, j:j1], upper=True, left=False)
+        X[j1:, j:j1] = panel
+        for c in range(j1, n, block):
+            c1 = min(c + block, n)
+            X[c:, c:c1].addmm_(panel[c - j1 :], panel[c - j1 : c1 - j1].mT, alpha=-1)
+        del panel
+    return X.tril_()
+
+
+def _tril_inverse_(X: torch.Tensor, block: int) -> torch.Tensor:
+    """The inverse of the lower-triangular ``X`` (zeros above the
+    diagonal), in place, from the last block column to the first: with the
+    trailing block ``L22^-1`` already in place, the block column below the
+    diagonal becomes ``-L22^-1 L21 L11^-1``, its product formed one block
+    row at a time over the lower triangle only."""
+    n = X.shape[0]
+    for j in reversed(range(0, n, block)):
+        j1 = min(j + block, n)
+        eye = torch.eye(j1 - j, dtype=X.dtype, device=X.device)
+        D_inv = torch.linalg.solve_triangular(X[j:j1, j:j1], eye, upper=False)
+        if j1 < n:
+            T = torch.empty((n - j1, j1 - j), dtype=X.dtype, device=X.device)
+            for r in range(j1, n, block):
+                r1 = min(r + block, n)
+                torch.mm(X[r:r1, j1:r1], X[j1:r1, j:j1], out=T[r - j1 : r1 - j1])
+            X[j1:, j:j1] = (T @ D_inv).neg_()
+            del T
+        X[j:j1, j:j1] = D_inv
+    return X
+
+
+def _lower_gram_(X: torch.Tensor, block: int) -> torch.Tensor:
+    """``W^T W`` for the lower-triangular ``W`` held in ``X``, in place (the
+    LAPACK ``lauum`` order): block row ``i`` of the lower triangle is
+    ``W[i:, I]^T W[i:, :i1]``, which reads only rows not yet overwritten;
+    the upper triangle is then mirrored from the lower."""
+    n = X.shape[0]
+    for i in range(0, n, block):
+        i1 = min(i + block, n)
+        X[i:i1, :i1] = X[i:, i:i1].mT @ X[i:, :i1]
+    for i in range(0, n, block):
+        i1 = min(i + block, n)
+        X[i:i1, i1:] = X[i1:, i:i1].mT
+    return X
+
+
+def _chol_explicit_inverse(A: torch.Tensor, w: torch.Tensor, block: int) -> torch.Tensor:
+    """The solution operator ``M = -P_s^-1 / w`` of ``(-A) x = h`` by the
+    ``"inv"`` route, the port of the JAX package's
+    ``_jax_chol_explicit_inverse_from_A``: Cholesky of ``P_s``, the
+    triangular inverse and ``L^-T L^-1``, all in place in the one new
+    ``(n, n)`` buffer of :func:`_spd_part`, then its rows scaled by
+    ``-1/w``.  Beside ``A`` the route holds that buffer and panels of at
+    most ``n x block``, within the three matrices that the materialized
+    ceiling allows (``solver.solve_film.LU_PEAK_BUFFERS``)."""
+    X = _cholesky_(_spd_part(A, w), block)
+    _lower_gram_(_tril_inverse_(X, block), block)
+    return X.div_(w[:, None]).neg_()
+
+
 def factor_system(A, weights_col=None, force_sharded: bool = False):
-    """LU factors of ``-A`` (solves are against ``-A``): the packed
-    ``LU`` and the row permutation ``perm`` with ``(-A)[perm] = L U``.
+    """Factorizes the film system ``A`` (solves are against ``-A``).
+
+    LU factors ``(LU, perm)`` of ``-A`` (the packed ``LU`` and the row
+    permutation with ``(-A)[perm] = L U``) for a system on the CPU, of at
+    most :data:`LU_MAX_N_TPU` unknowns, or without ``weights_col``: the
+    column scaling ``w`` that makes ``A / w`` symmetric positive definite,
+    which a film with an inhomogeneous Lambda does not have (its
+    ``(grad Lambda) . grad`` term is not symmetric).  A larger system on
+    the card with ``weights_col`` is inverted over an installed
+    factorization mesh (:func:`parallel.sharding.sharded_inverse_of_system`,
+    ``("inv", M, w)`` with ``M`` row-sharded), else factorized by the route
+    of :func:`large_factor_method`: ``("inv", M, w)`` with the solution
+    operator ``M`` (``"inv"``, ``"schur"``, ``"schulz"``, and ``"cg"`` on a
+    system that is materialized anyway, which takes ``"schur"``), or
+    ``("chol", L, w)``.  A route whose Cholesky meets a block that is not
+    positive definite raises; no route retries another.
 
     ``force_sharded`` marks a film past the single-device dense ceiling
     that stayed dense only because a factorization mesh is installed (as
     in the JAX package, on every backend): its system ``A`` (a
     :class:`RowSharded` or a tensor) is inverted row-sharded over the
-    mesh by :func:`parallel.sharding.sharded_spd_inverse`, with
-    ``weights_col`` (the column scaling that makes ``-A / w`` SPD), and
-    the factors are ``("inv", M, w)``.  The port's own factorization
+    mesh.  The port's own factorization
     (:func:`solver.solve_film.factorize_linear_systems`) knows the mesh and
     calls :func:`parallel.sharding.sharded_inverse_of_system` itself; this
     flag keeps the JAX package's call working."""
-    if force_sharded:
-        from ..parallel import sharding
+    from ..parallel import sharding
 
+    if force_sharded:
         mesh = sharding.factorization_mesh()
         if mesh is None or mesh.shape["model"] <= 1:
             raise ValueError(
@@ -89,62 +219,84 @@ def factor_system(A, weights_col=None, force_sharded: bool = False):
                 "(parallel.set_factorization_mesh)."
             )
         return ("inv", sharding.sharded_inverse_of_system(mesh, A, weights_col), weights_col)
-    lu, piv = torch.linalg.lu_factor(-A)
-    return lu, _pivots_to_permutation(piv)
+    if weights_col is None or _on_cpu(A) or A.shape[0] <= LU_MAX_N_TPU:
+        lu, piv = torch.linalg.lu_factor(-A)
+        return lu, _pivots_to_permutation(piv)
+    w = weights_col
+    mesh = sharding.factorization_mesh()
+    if mesh is not None and mesh.shape["model"] > 1:
+        return ("inv", sharding.sharded_inverse_of_system(mesh, A, w), w)
+    method = large_factor_method()
+    if method == "inv":
+        return ("inv", _chol_explicit_inverse(A, w, FACTOR_BLOCK), w)
+    if method == "chol":
+        return ("chol", _cholesky_(_spd_part(A, w), FACTOR_BLOCK), w)
+    if method == "schulz":
+        return ("inv", rows.schulz_inverse_rows(RowSharded([A]), w).blocks[0], w)
+    return ("inv", rows.schur_inverse_rows(RowSharded([A]), w, leaf=rows.SCHUR_LEAF).blocks[0], w)
 
 
-def is_inverse(factors) -> bool:
-    """True for the ``("inv", M, w)`` factors of a row-sharded film,
-    False for LU factors ``(lu, perm)``."""
-    return isinstance(factors[0], str) and factors[0] == "inv"
+def factor_kind(factors) -> str:
+    """``"inv"``, ``"chol"`` or ``"lu"``: the form of the factors that
+    :func:`factor_system` returned."""
+    return factors[0] if isinstance(factors[0], str) else "lu"
 
 
 def factors_dtype(factors) -> torch.dtype:
-    """The dtype the factors solve in: the packed ``LU``'s or ``M``'s."""
-    return factors[1].dtype if is_inverse(factors) else factors[0].dtype
+    """The dtype the factors solve in: the packed ``LU``'s, ``M``'s or
+    ``L``'s."""
+    return factors[0].dtype if factor_kind(factors) == "lu" else factors[1].dtype
 
 
-def lu_solve(lu_perm, h: torch.Tensor) -> torch.Tensor:
+def lu_solve(lu_piv, h: torch.Tensor) -> torch.Tensor:
     """Solves ``(-A) x = h`` for ``h`` of shape ``(n,)`` or ``(n, k)``.
 
-    Two triangular solves read the triangles of the packed ``LU`` in
-    place; ``torch.linalg.lu_solve`` would first unpack ``L`` and ``U``
-    into new ``(n, n)`` buffers on every call.  Factors ``("inv", M, w)``
-    solve by the row-sharded product ``M h``, gathered on ``h``'s device.
+    LU factors ``(LU, perm)``: two triangular solves read the triangles of
+    the packed ``LU`` in place; ``torch.linalg.lu_solve`` would first
+    unpack ``L`` and ``U`` into new ``(n, n)`` buffers on every call.
+    ``("inv", M, w)``: the product ``M h`` (row by row for a row-sharded
+    ``M``, gathered on ``h``'s device).  ``("chol", L, w)``: ``A = P
+    diag(w)`` with ``P = L L^T``, so ``x = -cho_solve(L, h) / w``.
     """
-    if is_inverse(lu_perm):
-        return lu_perm[1] @ h
-    lu, perm = lu_perm
+    kind = factor_kind(lu_piv)
+    if kind == "inv":
+        return lu_piv[1] @ h
     squeeze = h.ndim == 1
-    rhs = (h[:, None] if squeeze else h)[perm]
-    y = torch.linalg.solve_triangular(lu, rhs, upper=False, unitriangular=True)
-    x = torch.linalg.solve_triangular(lu, y, upper=True)
+    rhs = h[:, None] if squeeze else h
+    if kind == "chol":
+        _, L, w = lu_piv
+        x = torch.cholesky_solve(rhs, L).div_(w[:, None]).neg_()
+    else:
+        lu, perm = lu_piv
+        y = torch.linalg.solve_triangular(lu, rhs[perm], upper=False, unitriangular=True)
+        x = torch.linalg.solve_triangular(lu, y, upper=True)
     return x[:, 0] if squeeze else x
 
 
 def lu_solve_refined(
     A: torch.Tensor,
-    lu_perm: Tuple[torch.Tensor, torch.Tensor],
+    lu_piv,
     h: torch.Tensor,
     refine_steps: int = 2,
 ) -> torch.Tensor:
     """Solves ``(-A) x = h`` with ``refine_steps`` rounds of plain
     iterative refinement (``x += lu_solve(h + A @ x)``, the residual from
     :func:`system_residual`), for the solves outside the sweep: the
-    terminal bootstrap and the vortex response columns.
+    terminal bootstrap and the vortex response columns.  The factors are
+    any form :func:`lu_solve` takes.
 
     A float64 ``A`` with float32 factors is a high-precision system (see
     :mod:`superscreen_tpu_torch.solver.refine`): it is solved to float64
     accuracy by :func:`refined_solve`, with the factors as preconditioner.
     """
-    if factors_dtype(lu_perm) != A.dtype:
-        return refined_solve(A, mixed_preconditioner(lu_perm, A.dtype), h)
+    if factors_dtype(lu_piv) != A.dtype:
+        return refined_solve(A, mixed_preconditioner(lu_piv, A.dtype), h)
     squeeze = h.ndim == 1
     if squeeze:
         h = h[:, None]
-    x = lu_solve(lu_perm, h)
+    x = lu_solve(lu_piv, h)
     for _ in range(refine_steps):
-        x = x + lu_solve(lu_perm, system_residual(A, h, x))
+        x = x + lu_solve(lu_piv, system_residual(A, h, x))
     return x[:, 0] if squeeze else x
 
 
@@ -169,13 +321,14 @@ def system_residual(A: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.
     return kernels.residual_f64(A, x, h, out_dtype=h.dtype)
 
 
-def mixed_preconditioner(lu_perm, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The factors of a lower-precision copy of ``-A`` as an approximate
-    solver for right-hand sides of ``dtype``: cast down, solve, cast up."""
-    low = factors_dtype(lu_perm)
+def mixed_preconditioner(lu_piv, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The factors (any form :func:`lu_solve` takes) of a lower-precision
+    copy of ``-A`` as an approximate solver for right-hand sides of
+    ``dtype``: cast down, solve, cast up."""
+    low = factors_dtype(lu_piv)
 
     def precond(rhs: torch.Tensor) -> torch.Tensor:
-        return lu_solve(lu_perm, rhs.to(low)).to(dtype)
+        return lu_solve(lu_piv, rhs.to(low)).to(dtype)
 
     return precond
 
@@ -261,10 +414,11 @@ def refine_safeguarded(
 
 def large_factor_method() -> str:
     """Reads and validates ``SUPERSCREEN_TPU_LARGE_FACTOR``, as the JAX
-    package does (a typo raises instead of selecting a default).  ``"cg"``
-    solves low-memory films matrix-free; every other value factorizes
-    their materialized system with the LU above, as the JAX package does
-    on the CPU for every method."""
+    package does (a typo raises instead of selecting a default): the route
+    of :func:`factor_system` for a system on the card above
+    :data:`LU_MAX_N_TPU` unknowns (``"inv"``, the default, ``"chol"``,
+    ``"schur"`` or ``"schulz"``); ``"cg"`` solves low-memory films
+    matrix-free, and a system materialized anyway takes ``"schur"``."""
     method = os.environ.get("SUPERSCREEN_TPU_LARGE_FACTOR", "inv")
     if method not in ("schur", "inv", "chol", "schulz", "cg"):
         raise ValueError(

@@ -274,7 +274,8 @@ def _replica(data, slots: Sequence[torch.device]):
     """Film sweep data for one data row: the operators that only products
     consume (``Qw``, ``A``, and the explicit inverse of a film factorized
     over a mesh) row-sharded over its model slots, everything else on its
-    first slot (LU factors feed triangular solves and are replicated)."""
+    first slot (LU and Cholesky factors feed triangular solves and are
+    replicated)."""
     kwargs = {}
     for f in fields(data):
         value = getattr(data, f.name)
@@ -356,7 +357,7 @@ def sharded_film_data(film_data: Dict[str, object], mesh: DeviceMesh, pad_to_sha
     """Places each film's sweep data on the mesh: ``Q diag(w)``, the
     system ``A`` (refinement residuals) and the explicit inverse of an
     ``"inv"`` film are row-sharded over each data row's model slots (all
-    product-only consumers); LU factors and everything else are
+    product-only consumers); LU and Cholesky factors and everything else are
     replicated to each data row's first slot (triangular solves do not
     split by rows).
 

@@ -25,7 +25,7 @@ tensors, which launch the float64 instantiations of the CUDA kernels.
 :func:`get_hp_model` wraps the float64 systems and the float32 factors in
 a second :class:`FactorizedModel`; ``solve(high_precision=True)`` runs the
 ordinary sweep machinery on it.  ``A64`` costs ``8 ni^2`` bytes per film on
-the card beside the float32 ``A`` and ``LU``.
+the card beside the float32 ``A`` and its factors.
 """
 
 import logging
@@ -98,7 +98,7 @@ def _assemble64(device, film_info, film_system):
     if film_system.A is None:
         raise ValueError(
             f"Film {name!r} is solved matrix-free (CG or BiCGStab) and has no "
-            "materialized system; high_precision needs an LU-factorized film "
+            "materialized system; high_precision needs a factorized film "
             "(unset SUPERSCREEN_TPU_LARGE_FACTOR=cg or raise "
             "SUPERSCREEN_TPU_MAX_MATERIALIZED_N)."
         )
@@ -168,7 +168,7 @@ def _with_factors(system64: LinearSystem, system32: LinearSystem) -> LinearSyste
 def get_hp_model(model):
     """The (lazily built, cached) float64 twin of a factorized model: the
     same device, index sets and drive state, float64 film info, systems and
-    film data, and the float32 model's LU factors as preconditioners.  The
+    film data, and the float32 model's factors (any form) as preconditioners.  The
     ordinary solve machinery runs on it; every film solve, vortex response
     column and terminal bootstrap solve is then
     :func:`refined_solve`.  Its drive state (circulating currents,

@@ -1,8 +1,8 @@
 """Top-level solve orchestration and the factorized model.
 
 Counterpart of ``superscreen_tpu/solver/solve.py`` on its device-resident
-path: :func:`factorize_model` builds and LU-factorizes every film system on
-the torch device, with the model's terminal currents, circulating currents
+path: :func:`factorize_model` builds and factorizes every film system on
+the torch device (:func:`superscreen_tpu_torch.ops.linalg.factor_system`), with the model's terminal currents, circulating currents
 and vortices; :func:`solve` runs the initial per-film solve plus
 ``iterations`` rounds of self-consistent inter-film coupling (exact or
 FFT, as :func:`superscreen_tpu_torch.solve_many` dispatches) and returns
@@ -121,7 +121,7 @@ class FactorizedModel:
     fft_grids: Optional[Dict[str, object]] = None
 
     def to_hdf5(self, h5group) -> None:
-        """Saves the model, its LU factors included, to ``h5group`` (an
+        """Saves the model, its factors included, to ``h5group`` (an
         ``h5py.Group``) in the JAX package's group layout; the tensors come
         to the host here.  The float64 twin of ``solve(high_precision=True)``
         and the FFT grids are not saved: they are rebuilt on first use."""
@@ -143,7 +143,8 @@ class FactorizedModel:
     @staticmethod
     def from_hdf5(h5group, torch_device="cuda") -> "FactorizedModel":
         """Loads a model saved by :meth:`to_hdf5`, or a JAX package model
-        whose films are LU-factorized, with its tensors on ``torch_device``
+        whose films are LU-, Cholesky- or inverse-factorized, with its
+        tensors on ``torch_device``
         (``"cuda"`` by default; raises without a card).
 
         The film data the solve runs on is rebuilt from the loaded systems:
@@ -272,7 +273,10 @@ def factorize_model(
     torch_device="cuda",
 ) -> FactorizedModel:
     """Prepares the applied-field-independent part of a model: builds and
-    LU-factorizes the per-film systems on ``torch_device``.
+    factorizes the per-film systems on ``torch_device``
+    (:func:`superscreen_tpu_torch.ops.linalg.factor_system`: LU, or above
+    ``LU_MAX_N_TPU`` unknowns on the card the route of
+    ``SUPERSCREEN_TPU_LARGE_FACTOR``).
 
     Args:
         device: The device to simulate.
@@ -478,7 +482,7 @@ def solve(
         high_precision: Solve to float64 accuracy around the float32
             factorizations (see :mod:`superscreen_tpu_torch.solver.refine`):
             float64 systems on the torch device, every film solve refined
-            in float64 with the float32 LU as preconditioner, float64
+            in float64 with the float32 factors as preconditioner, float64
             current densities, self-fields and inter-film coupling.  The
             solutions hold float64 arrays.  A film solved matrix-free
             raises.  Forces ``coupling="exact"``.

@@ -2,14 +2,21 @@
 
 Counterpart of ``superscreen_tpu/solver/solve_film.py``: each film's system
 ``A = Q diag(w) - Lambda laplacian`` is restricted to the film's interior
-(outside its holes) and LU-factorized on the torch device; each hole gets
-the all-rows, hole-columns system whose row sums give the effective field
-of a unit circulating current.
+(outside its holes) and factorized on the torch device by
+:func:`ops.linalg.factor_system` with the film's interior weights: LU on
+the CPU and up to ``LU_MAX_N_TPU`` unknowns, above that on the card the
+route of ``SUPERSCREEN_TPU_LARGE_FACTOR`` (the explicit inverse by
+default), as the JAX package factorizes on its accelerator.  A film with
+an inhomogeneous Lambda is LU-factorized at any size: its system has no
+symmetric positive definite scaling, and the routes' symmetric part
+misses the residual bar (``tests/test_torch_factor_routes.py``).  Each
+hole gets the all-rows, hole-columns system whose row sums give the
+effective field of a unit circulating current.
 
 A film on the low-memory path (``FilmInfo.dense_kernel`` False) never
 builds the full ``(n, n)`` kernel.  Its interior system is assembled from
 the q-block of the interior sites, the matrix-free row sums ``q @ w`` and
-the sparse Laplacian, and is LU-factorized; or, with
+the sparse Laplacian, and is factorized as a dense film's is; or, with
 ``SUPERSCREEN_TPU_LARGE_FACTOR=cg`` or an interior above the materialized
 ceiling, it is not materialized at all and is solved on the matrix-free
 operator: by CG, or by BiCGStab when its Lambda is inhomogeneous.  Its
@@ -66,14 +73,19 @@ __all__ = [
 
 #: Device bytes one low-memory film's factorization may take at its peak;
 #: sets the default ceiling on the interior size ``ni`` of a film whose
-#: system is materialized and LU-factorized (a larger interior is solved by
-#: CG matrix-free).  At that peak the card holds ``A``, the transient
-#: ``-A`` that :func:`ops.linalg.factor_system` hands to ``lu_factor`` and
-#: the packed ``LU``: three ``(ni, ni)`` buffers, 12.0 bytes per ni^2 in
-#: float32 as measured on an H100.  67.5 GB of an 80 GB card, which leaves
+#: system is materialized and factorized (a larger interior is solved by
+#: CG matrix-free).  At that peak the card holds :data:`LU_PEAK_BUFFERS`
+#: ``(ni, ni)`` buffers: for LU ``A``, the transient ``-A`` that
+#: :func:`ops.linalg.factor_system` hands to ``lu_factor`` and the packed
+#: ``LU`` (12.0 bytes per ni^2 in float32 as measured on an H100); for the
+#: ``"inv"`` and ``"chol"`` routes fewer, ``A`` and the one buffer the
+#: factor is built in, plus panels (2.25 and 2.12 on an H100 at ni =
+#: 16,768).  The ``"schur"`` and ``"schulz"`` routes hold
+#: :data:`INVERSE_PEAK_BUFFERS`.  67.5 GB of an 80 GB card, which leaves
 #: ~12 GB for the solver's workspace and the model's other tensors, gives
-#: ni = 75,000 in float32 and 53,033 in float64.  The JAX package's
-#: default, 65,000, was sized for a 16 GB TPU with another factorization.
+#: ni = 75,000 in float32 and 53,033 in float64 at three buffers.  The JAX
+#: package's default, 65,000, was sized for a 16 GB TPU with another
+#: factorization.
 #: ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N`` (read when the model is
 #: factorized) sets the ceiling directly.
 MAX_MATERIALIZED_BYTES = 67_500_000_000
@@ -81,6 +93,14 @@ MAX_MATERIALIZED_BYTES = 67_500_000_000
 #: ``(ni, ni)`` buffers at the peak of a single-device factorization, which
 #: :data:`MAX_MATERIALIZED_BYTES` is sized for.
 LU_PEAK_BUFFERS = 3
+
+#: ``(ni, ni)`` buffers at the peak of the ``"schur"`` and ``"schulz"``
+#: routes on one card: ``A``, the iterate and the next
+#: (:data:`ops.rows.PEAK_BLOCKS`) and the panels of a product with the
+#: symmetrised system, which stay below one more matrix above
+#: ``ops.linalg.LU_MAX_N_TPU`` (3.49 on an H100 at ni = 16,768, 3.66 at
+#: 12,430).  Their materialized ceiling derives from it.
+INVERSE_PEAK_BUFFERS = PEAK_BLOCKS + 1
 
 
 @dataclass
@@ -94,10 +114,11 @@ class LinearSystem:
             For a hole of a low-memory film, the vector ``A @ 1``.  None
             for a film solved matrix-free.
         indices: The mesh indices this system acts on.
-        lu_piv: The LU factorization ``(LU, perm)`` of ``-A`` (see
-            :func:`superscreen_tpu_torch.ops.linalg.factor_system`), or
-            ``("inv", M, w)`` for a film factorized over a mesh (``A``
-            and ``M`` row-sharded), or None.
+        lu_piv: The factors of ``-A`` (see
+            :func:`superscreen_tpu_torch.ops.linalg.factor_system`): LU
+            ``(LU, perm)``, the explicit inverse ``("inv", M, w)`` (``A``
+            and ``M`` row-sharded for a film factorized over a mesh), or
+            the Cholesky factor ``("chol", L, w)``; or None.
         cg_op: The matrix-free operator pieces of a film solved by CG (see
             :func:`superscreen_tpu_torch.ops.linalg.brandt_matvec`), or None.
     """
@@ -110,18 +131,21 @@ class LinearSystem:
     def to_hdf5(self, h5group) -> None:
         """Writes the system into ``h5group`` (an ``h5py.Group``) in the JAX
         package's layout: ``A``, ``indices``, and the factors as ``lu`` and
-        0-based LAPACK ``piv`` (the JAX package's convention); the
-        matrix-free pieces of a film solved by CG or BiCGStab go to a
-        ``matrix_free`` group of this package's own.  The tensors come to
-        the host here."""
+        0-based LAPACK ``piv`` (the JAX package's convention), ``inv_M``
+        and ``inv_w`` (a row-sharded ``M`` gathered), or ``chol_L`` and
+        ``chol_w``; the matrix-free pieces of a film solved by CG or
+        BiCGStab go to a ``matrix_free`` group of this package's own.  The
+        tensors come to the host here."""
         if self.A is not None:
             h5group["A"] = np.asarray(self.A.cpu() if torch.is_tensor(self.A) else self.A)
         h5group["indices"] = np.asarray(self.indices)
-        if self.lu_piv is not None and linalg.is_inverse(self.lu_piv):
-            # The JAX package's layout of its explicit inverse, gathered.
-            h5group["inv_M"] = np.asarray(self.lu_piv[1])
-            h5group["inv_w"] = self.lu_piv[2].cpu().numpy()
-        elif self.lu_piv is not None:
+        kind = None if self.lu_piv is None else linalg.factor_kind(self.lu_piv)
+        if kind in ("inv", "chol"):
+            _, factor, w = self.lu_piv
+            name = "inv_M" if kind == "inv" else "chol_L"
+            h5group[name] = np.asarray(factor.cpu() if torch.is_tensor(factor) else factor)
+            h5group[f"{kind}_w"] = w.cpu().numpy()
+        elif kind == "lu":
             lu, perm = self.lu_piv
             h5group["lu"] = lu.cpu().numpy()
             h5group["piv"] = permutation_to_pivots(perm.cpu().numpy())
@@ -140,26 +164,20 @@ class LinearSystem:
         """Reads a system written by :meth:`to_hdf5` or by the JAX package,
         with its tensors on ``torch_device``.
 
-        A JAX low-memory film's LU system is padded with a decoupled
-        identity block up to a multiple of 2048: ``A``, ``lu`` and ``piv``
-        are cut back to ``len(indices)`` (partial pivoting never leaves the
-        film's block, so the cut factors are those of the film's system).
-        A system factorized in a way this package does not load (the JAX
-        package's ``"cg"`` and ``"chol"`` factorizations, and an ``"inv"``
-        explicit inverse of either package, which belongs to a device
-        mesh) raises ``NotImplementedError`` naming the tag.
+        A JAX low-memory film's system is padded with a decoupled identity
+        block up to a multiple of 2048: ``A`` and the factors are cut back
+        to ``len(indices)`` (partial pivoting never leaves the film's
+        block, and the Cholesky factor and the inverse of a block-diagonal
+        matrix are block-diagonal, so the cut factors are those of the
+        film's system).  An ``"inv"`` film loads with ``M`` on
+        ``torch_device``, a film inverted over a mesh too.  The JAX
+        package's ``"cg"`` factorization, which this package does not
+        load, raises ``NotImplementedError`` naming the tag.
         """
-        for tag, key in (("cg", "cg_sub_sites"), ("chol", "chol_L")):
-            if key in h5group:
-                raise NotImplementedError(
-                    f"The system's {tag!r} factorization of the JAX package has no "
-                    "counterpart here; refactorize the model with superscreen_tpu_torch."
-                )
-        if "inv_M" in h5group:
+        if "cg_sub_sites" in h5group:
             raise NotImplementedError(
-                "The system's 'inv' factorization is an explicit inverse that belongs to a "
-                "device mesh; refactorize the model with superscreen_tpu_torch, with the "
-                "factorization mesh installed (parallel.set_factorization_mesh)."
+                "The system's 'cg' factorization of the JAX package has no "
+                "counterpart here; refactorize the model with superscreen_tpu_torch."
             )
         indices = np.array(h5group["indices"])
         ni = len(indices)
@@ -175,6 +193,11 @@ class LinearSystem:
             # Column-major, as ``torch.linalg.lu_factor`` returns it: the
             # triangular solves then sum in the same order, to the bit.
             lu_piv = (tensor(lu.T).mT, tensor(pivots_to_permutation(piv)))
+        for tag, key in (("inv", "inv_M"), ("chol", "chol_L")):
+            if key in h5group:
+                A = A[:ni, :ni]
+                factor = np.array(h5group[key])[:ni, :ni]
+                lu_piv = (tag, tensor(factor), tensor(np.array(h5group[f"{tag}_w"])[:ni]))
         cg_op = None
         if "matrix_free" in h5group:
             grp = h5group["matrix_free"]
@@ -433,16 +456,16 @@ def _hole_effective_field_vector_lowmem(
     return out
 
 
-def max_materialized_n(dtype: torch.dtype) -> int:
+def max_materialized_n(dtype: torch.dtype, buffers: int = LU_PEAK_BUFFERS) -> int:
     """The largest interior of a low-memory film that is materialized and
-    LU-factorized: ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N`` if set, else what
-    :data:`MAX_MATERIALIZED_BYTES` holds at three ``(ni, ni)`` buffers of
-    ``dtype``."""
+    factorized: ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N`` if set, else what
+    :data:`MAX_MATERIALIZED_BYTES` holds at ``buffers`` ``(ni, ni)``
+    buffers of ``dtype``, the peak of the film's factorization route."""
     ceiling = os.environ.get("SUPERSCREEN_TPU_MAX_MATERIALIZED_N")
     if ceiling is not None:
         return int(ceiling)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return math.isqrt(MAX_MATERIALIZED_BYTES // (LU_PEAK_BUFFERS * itemsize))
+    return math.isqrt(MAX_MATERIALIZED_BYTES // (buffers * itemsize))
 
 
 def _sharded_dense_ceiling(single_device_max: int) -> int:
@@ -472,9 +495,11 @@ def factorize_linear_systems(
     """Builds and factorizes the linear systems for all films, holes and
     terminals.
 
-    Each dense film's Laplacian (and gradient pair) is released once its
-    systems are built.  A low-memory film is LU-factorized from its
-    materialized interior system, or, with
+    Each film system is factorized by :func:`ops.linalg.factor_system`
+    with its interior weights, or without them (LU) where the film's
+    Lambda is inhomogeneous.  Each dense film's Laplacian (and gradient
+    pair) is released once its systems are built.  A low-memory film is
+    factorized from its materialized interior system, or, with
     ``SUPERSCREEN_TPU_LARGE_FACTOR=cg`` or an interior above
     ``SUPERSCREEN_TPU_MAX_MATERIALIZED_N``, left to a matrix-free solve.
 
@@ -489,8 +514,15 @@ def factorize_linear_systems(
     """
     method = linalg.large_factor_method()
 
-    def factor(A):
-        return None if assemble_only else linalg.factor_system(A)
+    def factor(A, info, ix):
+        if assemble_only:
+            return None
+        # The routes need the scaling that makes A / w symmetric positive
+        # definite, which an inhomogeneous Lambda's term breaks.
+        w_col = None
+        if not info.lambda_info.inhomogeneous:
+            w_col = info.weights[torch.as_tensor(ix, device=info.weights.device)]
+        return linalg.factor_system(A, w_col)
 
     film_systems = {}
     hole_systems = {}
@@ -510,7 +542,14 @@ def factorize_linear_systems(
                 )
                 for hole_name, indices in info.hole_indices.items()
             }
-            single_device_max = max_materialized_n(info.weights.dtype)
+            buffers = LU_PEAK_BUFFERS
+            if (
+                method in ("schur", "schulz")
+                and not linalg._on_cpu(info.weights)
+                and not info.lambda_info.inhomogeneous
+            ):
+                buffers = INVERSE_PEAK_BUFFERS
+            single_device_max = max_materialized_n(info.weights.dtype, buffers)
             if not assemble_only and (
                 method == "cg" or len(interior) > _sharded_dense_ceiling(single_device_max)
             ):
@@ -531,7 +570,9 @@ def factorize_linear_systems(
                 )
             else:
                 A = _build_system_2d_lowmem(info, interior, sites)
-                film_systems[film_name] = LinearSystem(A=A, indices=interior, lu_piv=factor(A))
+                film_systems[film_name] = LinearSystem(
+                    A=A, indices=interior, lu_piv=factor(A, info, interior)
+                )
             continue
         Q, weights, laplacian = info.kernel, info.weights, info.laplacian
         Lambda = torch.as_tensor(
@@ -553,7 +594,7 @@ def factorize_linear_systems(
 
         def system_2d(indices):
             A = _build_system_2d(Q, weights, Lambda, laplacian, indices, grad_Lambda_term)
-            return LinearSystem(A=A, indices=indices, lu_piv=factor(A))
+            return LinearSystem(A=A, indices=indices, lu_piv=factor(A, info, indices))
 
         hole_systems[film_name] = {
             hole_name: system_1d(indices) for hole_name, indices in info.hole_indices.items()

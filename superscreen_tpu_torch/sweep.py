@@ -4,7 +4,9 @@ it and behind :func:`solve`.
 Counterpart of ``superscreen_tpu/sweep.py``.  A sweep over ``B``
 parameter sets (applied fields, circulating currents, terminal currents,
 vortex amplitudes) reuses one factorization: the ``B`` right-hand sides
-are solved at once against each film's LU factors, or matrix-free (CG, or
+are solved at once against each film's factors (one product with the
+explicit inverse of a large film on the card, triangular solves with LU
+or Cholesky factors), or matrix-free (CG, or
 BiCGStab for an inhomogeneous Lambda) for a film whose system is not
 materialized; hole, vortex and transport contributions are batched
 rank-one terms; and the self-consistent inter-film coupling runs as a
@@ -52,11 +54,14 @@ class FilmSweepData:
         factors: The film's factors of ``-A`` as
             :func:`ops.linalg.lu_solve` takes them (the system's
             ``lu_piv``): ``(lu, perm)``, the packed LU and row
-            permutation, or ``("inv", M, w)`` for an ``"inv"`` film, the
-            explicit solution operator (an :class:`ops.rows.RowSharded`)
-            and the column weights; None for a matrix-free film.
+            permutation, ``("inv", M, w)`` for an ``"inv"`` film, the
+            explicit solution operator (row-sharded, an
+            :class:`ops.rows.RowSharded`, for a film inverted over a mesh)
+            and the column weights, or ``("chol", L, w)`` for a
+            ``"chol"`` film; None for a matrix-free film.
         A: ``(ni, ni)`` film system (for the refinement residual); None
-            for a matrix-free film; row-sharded for an ``"inv"`` film.
+            for a matrix-free film; row-sharded for a film inverted over a
+            mesh.
         Qw: ``(n, n)`` Brandt kernel with the vertex areas folded into its
             columns, ``Q diag(w)``: the self-field is ``Qw @ g``.  None on
             the low-memory path, where the self-field is applied
@@ -71,10 +76,9 @@ class FilmSweepData:
         hole_names: Hole names, in the order of the rows above.
         cg_op: Matrix-free operator pieces of a CG or BiCGStab film, else
             None.
-        fac_kind: ``"lu"``, ``"cg"``, ``"bicgstab"`` or ``"inv"`` (a
-            film factorized over a mesh, see
-            :func:`parallel.sharding.sharded_spd_inverse`): how the film's
-            system is solved.
+        fac_kind: ``"lu"``, ``"inv"``, ``"chol"`` (see
+            :func:`ops.linalg.factor_system`), ``"cg"`` or
+            ``"bicgstab"``: how the film's system is solved.
         vortex_cols: ``(ni, n_vortices)`` response of the interior stream
             to a unit source at each vortex site, or None.
         vortex_scales: ``(n_vortices,)`` ``1 / w_j`` at each vortex site.
@@ -268,7 +272,7 @@ def film_sweep_data(model, film_name: str, brandt_diag=None) -> FilmSweepData:
         Qw = info.kernel.mul_(w[None, :])
     info.kernel = None
     if system.cg_op is None:
-        factors, fac_kind = system.lu_piv, "inv" if linalg.is_inverse(system.lu_piv) else "lu"
+        factors, fac_kind = system.lu_piv, linalg.factor_kind(system.lu_piv)
     else:
         # A non-symmetric operator (inhomogeneous Lambda) needs BiCGStab.
         factors, fac_kind = None, "bicgstab" if system.cg_op["nonsym"] else "cg"

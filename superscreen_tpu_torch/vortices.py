@@ -17,8 +17,9 @@ at its own core: the diagonal of the film's response, the same column
 local sheet current, ``F = -grad E``.
 
 The self-energy over all candidate sites is the response diagonal of the
-film's factorization (:func:`_response_diagonal`): for an LU film a
-refined identity solve on the torch device, taken in column blocks so
+film's factorization (:func:`_response_diagonal`): for a film with
+factors (LU, Cholesky or explicit inverse) a refined identity solve on
+the torch device, taken in column blocks so
 that no second ``(n, n)`` is ever resident; for a matrix-free film the
 chunked one-hot solves or the colored-Hutchinson probing estimator of
 :func:`superscreen_tpu_torch.ops.linalg.matrix_free_response_diagonal`.
@@ -37,7 +38,8 @@ from .units import ureg as _global_ureg
 
 __all__ = ["VortexLandscape", "vortex_energy_landscape"]
 
-#: Identity columns solved at once for the response diagonal of an LU film.
+#: Identity columns solved at once for the response diagonal of a
+#: factorized film.
 DIAG_BLOCK = 2048
 
 
@@ -50,9 +52,14 @@ def _response_diagonal(
     """Per-site response ``g_self`` of a unit-flux probe for every site of
     the film system: ``d_j = -[(-A)^{-1}]_{jj}`` scaled by ``1 / w_j``.
 
-    An LU film solves ``(-A) X = I`` in blocks of :data:`DIAG_BLOCK`
-    columns with two steps of refinement (:func:`ops.linalg.lu_solve_refined`,
-    the solve of the vortex path) and keeps each block's diagonal; a
+    A film with factors of any form solves ``(-A) X = I`` in blocks of
+    :data:`DIAG_BLOCK` columns with two steps of refinement
+    (:func:`ops.linalg.lu_solve_refined`, the solve of the vortex path) and
+    keeps each block's diagonal.  The JAX package reads an ``"inv"``
+    film's ``-diag(M)`` unrefined (``superscreen_tpu/vortices.py:103-115``),
+    which carries the float32 inverse's error: ~6e-6 of the self-energy
+    at 6,600 unknowns, growing with the film, against the landscape's
+    1e-5 bar (``tests/test_torch_factor_routes.py``; ROADMAP 3.16).  A
     matrix-free film goes to
     :func:`ops.linalg.matrix_free_response_diagonal` with ``diag_method``
     and ``diag_options``.  The result is cached on the film system.
@@ -274,7 +281,8 @@ def vortex_energy_landscape(
         iterations: Inter-film coupling rounds for the background solve.
         units: Energy units of the landscape (default eV).
         diag_method: The response diagonal of a matrix-free film:
-            ``"exact"``, ``"probing"`` or ``"auto"`` (ignored for LU films).
+            ``"exact"``, ``"probing"`` or ``"auto"`` (ignored for factorized
+            films).
         diag_options: Keyword arguments of
             :func:`superscreen_tpu_torch.ops.linalg.matrix_free_response_diagonal`
             (``separation``, ``repeats``, ``chunk``, ``seed``).

@@ -41,7 +41,6 @@ ALLOWED = {
     ("name", "ops.fem", "coo_matvec"): "removed as dead: COO.matvec is the gather form",
     ("name", "ops", "coo_matvec"): "removed as dead: COO.matvec is the gather form",
     ("name", "ops.kernels", "C_vector_masked"): "padding to 2048 multiples is not carried over",
-    ("name", "ops.linalg", "LU_MAX_N_TPU"): _TPU,
     ("name", "ops.linalg", "lu_factor"): "the port factors with ops.linalg.factor_system",
     ("name", "ops.linalg", "brandt_cg_solve"): "the jitted solvers; the port's are the _host loops",
     ("name", "ops.linalg", "brandt_bicgstab_solve"): "the jitted solvers; the port's are the _host loops",
@@ -70,12 +69,6 @@ ALLOWED = {
     ("param", "ops.fem.coo_to_dense", "like"): "COO.to_dense(like='jax') is not carried over",
     ("param", "ops.fem.COO.to_dense", "like"): "COO.to_dense(like='jax') is not carried over",
     ("param", "ops.fem.COO.to_dense", "dtype"): "the port's to_dense builds a tensor of the dtype asked for",
-    ("param", "ops.linalg.lu_solve", "<order>"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
-    ("param", "ops.linalg.lu_solve", "lu_piv"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
-    ("param", "ops.linalg.lu_solve", "lu_perm"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
-    ("param", "ops.linalg.lu_solve_refined", "<order>"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
-    ("param", "ops.linalg.lu_solve_refined", "lu_piv"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
-    ("param", "ops.linalg.lu_solve_refined", "lu_perm"): "the port's factors are (LU, perm): lu_perm, not LAPACK pivots",
     ("param", "solver.solve_film.LinearSystem", "grad_Lambda_term"): "grad_Lambda_term is folded into A",
     ("param", "adjoint.AdjointModel", "dtype"): "AdjointModel.dtype follows the tensors; the model carries its torch device",
     ("param", "solver.utils.FilmInfo", "<order>"): _INTERNAL,

@@ -1175,3 +1175,51 @@ def test_q_matrix_rect_on_the_card(cuda, dtype, r0, r1):
     assert out.shape == ref.shape and bool((out[:, r0:r1].diagonal() == 0).all())
     assert _rel_err(out, ref) <= TOL[dtype]
     assert torch.equal(out, cuda_kernels.q_matrix(pts)[r0:r1])
+
+
+def _spd_system(n, dtype, device, seed=5):
+    """A system of the Brandt form ``A = P diag(w)`` with ``P`` symmetric
+    positive definite."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((n, n))
+    P = G @ G.T / n + 3.0 * np.eye(n)
+    w = rng.uniform(0.5, 1.5, n)
+    A = torch.as_tensor(P * w[None, :], dtype=dtype, device=device)
+    return A, torch.as_tensor(w, dtype=dtype, device=device), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["inv", "chol", "schur", "schulz", "cg"])
+def test_factor_routes_on_the_card_match_lu(cuda, monkeypatch, dtype, route):
+    """Each large-film route at 4,096 unknowns on the card (LU_MAX_N_TPU
+    lowered below it), its refined solves against the LU's: the tag, the
+    factor's device, and the streams within the float32 or float64 class.
+    ``"cg"`` on a system that is materialized anyway takes ``"schur"``."""
+    from superscreen_tpu_torch.ops import linalg
+
+    n = 4096
+    A, w, rng = _spd_system(n, dtype, cuda)
+    h = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype, device=cuda)
+    ref = linalg.lu_solve_refined(A, linalg.factor_system(A), h)
+    monkeypatch.setattr(linalg, "LU_MAX_N_TPU", 4000)
+    monkeypatch.setenv("SUPERSCREEN_TPU_LARGE_FACTOR", route)
+    factors = linalg.factor_system(A, w)
+    assert factors[0] == ("chol" if route == "chol" else "inv")
+    assert factors[1].device.type == "cuda" and factors[1].shape == (n, n)
+    x = linalg.lu_solve_refined(A, factors, h)
+    torch.cuda.synchronize()
+    assert _rel_err(x, ref) <= (1e-5 if dtype == torch.float32 else 1e-11)
+
+
+def test_factor_system_takes_the_default_route_on_the_card_only(cuda, monkeypatch):
+    """Above LU_MAX_N_TPU a system on the card takes "inv" by default and
+    the same system on the CPU takes LU; without weights (an inhomogeneous
+    Lambda) the card takes LU too."""
+    from superscreen_tpu_torch.ops import linalg
+
+    monkeypatch.delenv("SUPERSCREEN_TPU_LARGE_FACTOR", raising=False)
+    monkeypatch.setattr(linalg, "LU_MAX_N_TPU", 1000)
+    A, w, _ = _spd_system(1100, torch.float32, cuda)
+    assert linalg.factor_kind(linalg.factor_system(A, w)) == "inv"
+    assert linalg.factor_kind(linalg.factor_system(A.cpu(), w.cpu())) == "lu"
+    assert linalg.factor_kind(linalg.factor_system(A)) == "lu"

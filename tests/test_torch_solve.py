@@ -190,7 +190,6 @@ def test_cuda_without_a_card_raises():
         (lambda d: st.solve(d, circulating_currents={"nope": 1.0}, torch_device="cpu"), KeyError),
         (lambda d: st.solve(d, check_inversion=True), RuntimeError),
         (lambda d: st.solve(d, high_precision=True), RuntimeError),
-        (lambda d: _load_reference_system("chol"), NotImplementedError),
         (lambda d: _load_reference_system("cg"), NotImplementedError),
     ],
 )
@@ -202,20 +201,31 @@ def test_unsupported_options_raise(call, error):
 
 def _load_reference_system(tag):
     """Reads a film system that the JAX package factorized by ``tag``
-    (``"chol"``, ``"inv"`` or ``"cg"``), which the port does not build: an
-    in-memory HDF5 group in the JAX package's layout."""
+    (``"chol"``, ``"inv"`` or ``"cg"``): an in-memory HDF5 group in the
+    JAX package's layout.  Returns the loaded system."""
     h5py = pytest.importorskip("h5py")
     key = {"chol": "chol_L", "inv": "inv_M", "cg": "cg_sub_sites"}[tag]
     with h5py.File(io.BytesIO(), "w") as f:
+        f["A"] = 2.0 * np.eye(3)
         f["indices"] = np.arange(3)
         f[key] = np.eye(3)
-        st.solver.LinearSystem.from_hdf5(f, "cpu")
+        if tag != "cg":
+            f[f"{tag}_w"] = np.ones(3)
+        return st.solver.LinearSystem.from_hdf5(f, "cpu")
 
 
 @pytest.mark.parametrize("tag", ["chol", "inv", "cg"])
 def test_unported_film_systems_name_their_tag(tag):
-    with pytest.raises(NotImplementedError, match=repr(tag)):
-        _load_reference_system(tag)
+    """The JAX package's ``"cg"`` films still raise, naming the tag; its
+    ``"chol"`` and ``"inv"`` films load with their tag (the large-film
+    routes are ported)."""
+    if tag == "cg":
+        with pytest.raises(NotImplementedError, match=repr(tag)):
+            _load_reference_system(tag)
+        return
+    system = _load_reference_system(tag)
+    assert system.lu_piv[0] == tag and system.lu_piv[1].shape == (3, 3)
+    assert torch.equal(system.lu_piv[2], torch.ones(3, dtype=torch.float64))
 
 
 @pytest.mark.parametrize(
