@@ -1,0 +1,8 @@
+"""Share (%) of the traced window in which no operation ran on the device,
+in a cell whose calls complete drive points."""
+
+from benchmark.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, ctx.points)

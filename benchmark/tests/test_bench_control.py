@@ -1,0 +1,49 @@
+"""The control of each cell's comparison: the reference computed in TF32,
+put in the program's place.  On the card, at the cells' own sizes, it fails
+every limit (``benchmark/control.py``; PERF.md gives its readings).  Here,
+at a size the CPU holds, where TF32's error is smaller than at 27,298 sites
+per film, it reads at least ten times what the program reads on the same
+draws, and the scan's fails its limit already."""
+
+import time
+
+import pytest
+
+from benchmark import control, harness
+
+CELLS = {"rings27k_sweep": "four_ring_27k", "rings27k_solve": "four_ring_27k",
+         "rings27k_refactor": "four_ring_27k", "scan64": "scan_config5"}
+SEED = 2**31 + 5
+
+
+def program_reading(small, workload):
+    bench = harness.load_bench()
+    cell, _, traffic, per_layer, e2e = harness.cell_inputs(bench, workload)
+    result, _, _, _ = harness.run_cell(
+        cell, small(CELLS[workload]), traffic, per_layer, e2e, SEED, 0.5, 0, "cpu", time.perf_counter()
+    )
+    (check,) = result["checks"].values()
+    return check["value"], check["limit"]
+
+
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_the_control_reads_far_above_the_program(small, workload):
+    _, _, traffic, _, _ = harness.cell_inputs(harness.load_bench(), workload)
+    program, limit = program_reading(small, workload)
+    readings = control.control_readings(small(CELLS[workload]), traffic, SEED, 1, "cpu")
+    assert len(readings) == 1 and min(readings) > 10 * program
+    if workload == "scan64":
+        assert min(readings) > limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_the_control_fails_the_limit_on_the_card(workload):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cell, config, traffic, _, _ = harness.cell_inputs(harness.load_bench(), workload)
+    (limit,) = config["limits"].values()
+    readings = control.control_readings(config, traffic, SEED, 1, "cuda")
+    assert min(readings) > limit
