@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels, rows
 from .fem import gather_matvec
 from .rows import RowSharded
@@ -182,6 +183,7 @@ def _chol_explicit_inverse(A: torch.Tensor, w: torch.Tensor, block: int) -> torc
     return X.div_(w[:, None]).neg_()
 
 
+@tracing.traced("factorize.factor")
 def factor_system(A, weights_col=None, force_sharded: bool = False):
     """Factorizes the film system ``A`` (solves are against ``-A``).
 
@@ -366,17 +368,17 @@ def refined_solve(
     best_x = x
     best_r = torch.linalg.vector_norm(r, dim=0)
     for _ in range(max_steps):
-        if bool(torch.all(best_r <= rtol * href)):
+        if bool(tracing.to_host(torch.all(best_r <= rtol * href))):
             break
         x = x + precond(r)
         r = H + A64 @ x
         rn = torch.linalg.vector_norm(r, dim=0)
         improved = rn < best_r
-        if not bool(improved.any()):
+        if not bool(tracing.to_host(improved.any())):
             break
         best_x = torch.where(improved[None, :], x, best_x)
         best_r = torch.minimum(rn, best_r)
-    worst = float(torch.max(best_r / href))
+    worst = float(tracing.to_host(torch.max(best_r / href)))
     if worst > 1e-8:
         logger.warning(
             f"High-precision refinement stalled at relative residual "
@@ -529,7 +531,7 @@ def brandt_cg_solve_host(
             p = z + beta[None, :] * p
             rz = rz_new
         done += min(chunk, maxiter - done)
-        res = float(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm))
+        res = float(tracing.to_host(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm)))
         if res < tol or not np.isfinite(res):
             break
     _warn_if_unconverged(res, tol, "CG")
@@ -598,7 +600,7 @@ def brandt_bicgstab_solve_host(
             r = s - omega[None, :] * t
             rho = rho_new
         done += min(chunk, maxiter - done)
-        res = float(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm))
+        res = float(tracing.to_host(torch.max(torch.linalg.vector_norm(r, dim=0) / bnorm)))
         if res < tol or not np.isfinite(res):
             break
     _warn_if_unconverged(res, tol, "BiCGStab")

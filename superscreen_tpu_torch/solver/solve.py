@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import Device
 from ..io import new_group
 from ..solution import FilmSolution, Solution, Vortex
@@ -263,6 +264,7 @@ def _save_mapping(parent, name: str, mapping: Dict):
     return grp
 
 
+@tracing.traced("factorize_model", entry=True)
 def factorize_model(
     *,
     device: Device,
@@ -324,7 +326,7 @@ def factorize_model(
         scale = max((abs(c) for c in currents.values()), default=0.0)
         if abs(total) > 1e-9 * max(1.0, scale):
             raise ValueError(f"Terminal currents in film {film_name!r} are not conserved.")
-    with highest_matmul_precision():
+    with highest_matmul_precision(), tracing.span("factorize.assembly"):
         film_info = make_film_info(
             device=device,
             circulating_currents=circulating_currents,
@@ -425,6 +427,7 @@ def _sample_applied_fields(
     return out
 
 
+@tracing.traced("solve", entry=True)
 def solve(
     device: Optional[Device] = None,
     *,
@@ -539,19 +542,17 @@ def solve(
         field_units, current_units, length_units=device.length_units, ureg=device.ureg
     ).magnitude
     applied_field = applied_field or ConstantField(0)
-    applied_fields = _sample_applied_fields(device, applied_field, field_conversion, dtype)
-    Hz = {
-        name: torch.as_tensor(applied_fields[name][None], device=torch_device)
-        for name in films
-    }
-    I_circ = {
-        name: torch.tensor(
-            [[model.circulating_currents.get(h, 0.0) for h in model.film_info[name].hole_indices]],
-            dtype=tdtype,
-            device=torch_device,
-        )
-        for name in films
-    }
+    with tracing.span("sweep.inputs"):
+        applied_fields = _sample_applied_fields(device, applied_field, field_conversion, dtype)
+        Hz = {name: tracing.to_device(applied_fields[name][None], torch_device) for name in films}
+        I_circ = {
+            name: tracing.to_device(
+                [[model.circulating_currents.get(h, 0.0) for h in model.film_info[name].hole_indices]],
+                torch_device,
+                tdtype,
+            )
+            for name in films
+        }
     coupled = len(films) >= 2 and iterations >= 1
     coupling = "exact" if high_precision else _resolve_coupling(model, films, iterations, coupling)
     with highest_matmul_precision():
@@ -568,36 +569,39 @@ def solve(
             check_inversion=check_inversion,
             coupling=coupling,
         )
-    gs, Js, selfs, others = (
-        {name: t.cpu().numpy() for name, t in d.items()} for d in (gs, Js, selfs, others)
-    )
-    inv = 1.0 / field_conversion
-    vortex_list = [v for vs in model.vortices.values() for v in vs]
-    rounds = range(iterations + 1 if coupled else 1)
-    with _SolutionSink(device, save_path, return_solutions) as sink:
-        for i in _progress(rounds, "Solutions", progress_bar):
-            film_solutions = {
-                name: FilmSolution(
-                    stream=gs[name][i, 0],
-                    current_density=Js[name][i, 0],
-                    applied_field=applied_fields[name] * inv,
-                    self_field=selfs[name][i, 0] * inv,
-                    field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
-                )
-                for name in films
-            }
-            sink.append(
-                Solution(
-                    device=device,
-                    film_solutions=film_solutions,
-                    applied_field_func=applied_field,
-                    field_units=field_units,
-                    current_units=current_units,
-                    circulating_currents=model.circulating_currents,
-                    terminal_currents=model.terminal_currents,
-                    vortices=vortex_list,
-                    solver=_solver,
-                    torch_device=torch_device,
-                )
+    with tracing.span("sweep.results"):
+        with tracing.span("sweep.to_host"):
+            gs, Js, selfs, others = (
+                {name: tracing.to_host(t).numpy() for name, t in d.items()}
+                for d in (gs, Js, selfs, others)
             )
-    return sink.result()
+        inv = 1.0 / field_conversion
+        vortex_list = [v for vs in model.vortices.values() for v in vs]
+        rounds = range(iterations + 1 if coupled else 1)
+        with _SolutionSink(device, save_path, return_solutions) as sink:
+            for i in _progress(rounds, "Solutions", progress_bar):
+                film_solutions = {
+                    name: FilmSolution(
+                        stream=gs[name][i, 0],
+                        current_density=Js[name][i, 0],
+                        applied_field=applied_fields[name] * inv,
+                        self_field=selfs[name][i, 0] * inv,
+                        field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
+                    )
+                    for name in films
+                }
+                sink.append(
+                    Solution(
+                        device=device,
+                        film_solutions=film_solutions,
+                        applied_field_func=applied_field,
+                        field_units=field_units,
+                        current_units=current_units,
+                        circulating_currents=model.circulating_currents,
+                        terminal_currents=model.terminal_currents,
+                        vortices=vortex_list,
+                        solver=_solver,
+                        torch_device=torch_device,
+                    )
+                )
+        return sink.result()

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device.device import Device  # noqa: F401  (in the namespace, as in the JAX package)
 from ..ops import kernels
 from ..solution import Solution
@@ -69,8 +70,8 @@ def _length_factor(from_units: str, to_units: str) -> float:
 def _tensor(array, dtype, torch_device) -> torch.Tensor:
     """A NumPy array or a tensor as a tensor of ``dtype`` on the device."""
     if torch.is_tensor(array):
-        return array.to(device=torch_device, dtype=torch_dtype(dtype))
-    return torch.as_tensor(np.array(array, dtype=dtype), device=torch_device)
+        return tracing.to_device(array, torch_device, torch_dtype(dtype))
+    return tracing.to_device(np.array(array, dtype=dtype), torch_device)
 
 
 def _readout_tensors(dev, contours, heights, torch_device, block: int = 16) -> Dict[str, torch.Tensor]:
@@ -86,17 +87,19 @@ def _readout_tensors(dev, contours, heights, torch_device, block: int = 16) -> D
     is integrable).  Formed on ``torch_device`` in blocks of ``block``
     contours."""
     f64 = dict(dtype=torch.float64, device=torch_device)
-    pts = torch.as_tensor(np.array(contours, dtype=float), **f64)  # (Bc, k + 1, 2)
+    pts = tracing.to_device(np.array(contours, dtype=float), torch_device, torch.float64)  # (Bc, k + 1, 2)
     Bc = pts.shape[0]
     dl = pts[:, 1:] - pts[:, :-1]  # (Bc, k, 2)
     u = 0.5 * (dl + torch.roll(dl, 1, dims=1))
     verts = pts[:, :-1]
-    zs = torch.as_tensor(np.array(np.broadcast_to(heights, (Bc,)), dtype=float), **f64)
+    zs = tracing.to_device(
+        np.array(np.broadcast_to(heights, (Bc,)), dtype=float), torch_device, torch.float64
+    )
     R = {}
     for name, mesh in dev.meshes.items():
         z_s = float(dev.layers[dev.films[name].layer].z0)
-        sites = torch.as_tensor(mesh.sites, **f64)
-        w = torch.as_tensor(mesh.vertex_areas, **f64)
+        sites = tracing.to_device(mesh.sites, torch_device, torch.float64)
+        w = tracing.to_device(mesh.vertex_areas, torch_device, torch.float64)
         out = torch.empty((Bc, sites.shape[0], 2), **f64)
         for lo in range(0, Bc, block):
             c = verts[lo : lo + block]
@@ -120,13 +123,14 @@ def _readout_flux(R: Dict[str, torch.Tensor], Js: Dict[str, torch.Tensor]) -> to
     return sum(torch.sum(R[name] * Js[name], dim=(-2, -1)) for name in R)
 
 
+@tracing.traced("scan.readout")
 def _contour_flux(dev, Js, contours, heights, torch_device) -> np.ndarray:
     """The flux of ``(A / mu_0) . dl`` (trapezoid rule) of the sheet
     currents ``Js[film]`` around each of ``contours`` ``(Bc, k + 1, 2)`` at
     ``heights`` (scalar or ``(Bc,)``), in float64 on ``torch_device``."""
     R = _readout_tensors(dev, contours, heights, torch_device)
     Js = {name: _tensor(Js[name], np.float64, torch_device) for name in R}
-    return _readout_flux(R, Js).cpu().numpy()
+    return tracing.to_host(_readout_flux(R, Js)).numpy()
 
 
 def _resolve_heights(squid_height, B: int, dtype=float) -> np.ndarray:
@@ -183,6 +187,7 @@ def _gather_squid_sheets(
     return sheets
 
 
+@tracing.traced("scan.maps")
 def applied_field_maps(
     sample_device,
     squid_solution: Solution,
@@ -311,6 +316,7 @@ def _factorize_squid(
     return model, {name: base.current_densities[name][0] for name in squid.meshes}
 
 
+@tracing.traced("susceptibility_scan", entry=True)
 def susceptibility_scan(
     sample_device=None,
     *,

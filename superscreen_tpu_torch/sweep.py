@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .geometry import close_curve, path_vectors
 from .ops import kernels
 from .ops import linalg
@@ -329,6 +330,7 @@ def _widened(data: FilmSweepData, dtype: torch.dtype) -> FilmSweepData:
     )
 
 
+@tracing.traced("sweep.self_field")
 def _self_field_batch(data: FilmSweepData, g: torch.Tensor) -> torch.Tensor:
     """Self-field for ``g`` of shape ``(B, n)``: ``Q @ (w * g)`` as one
     product with ``Q diag(w)``, or on the low-memory path one matrix-free
@@ -401,13 +403,14 @@ def _check_inversion(name: str, A: torch.Tensor, h: torch.Tensor, gf: torch.Tens
     ``h + A gf``."""
     r = linalg.system_residual(A, h.double(), gf.double())
     err = r.abs()
-    if bool(torch.any(err > 1e-8 + 1e-5 * h.double().abs())):
+    if bool(tracing.to_host(torch.any(err > 1e-8 + 1e-5 * h.double().abs()))):
         logger.warning(
             f"Unable to solve for stream function in {name!r}, "
-            f"maximum error {float(err.max()):.3e}."
+            f"maximum error {float(tracing.to_host(err.max())):.3e}."
         )
 
 
+@tracing.traced("sweep.film_solve")
 def _solve_film_batch(
     data: FilmSweepData,
     Hz_total: torch.Tensor,  # (B, n): applied + field from other films
@@ -450,6 +453,7 @@ def _solve_film_batch(
     return g, torch.stack([Jx, Jy], dim=-1)
 
 
+@tracing.traced("sweep.coupling")
 def _coupling_round(
     film_data: Dict[str, FilmSweepData], films: List[str], streams, Js, Hz_applied,
     coupling: str = "exact",
@@ -1066,6 +1070,7 @@ def _resolve_coupling(model, films, iterations, coupling: str) -> str:
     return coupling
 
 
+@tracing.traced("solve_many", entry=True)
 def solve_many(
     device=None,
     *,
@@ -1213,61 +1218,60 @@ def solve_many(
     # The applied fields as (B, n) tensors per film, in solver units.
     if (applied_fields is None) == (applied_field_arrays is None):
         raise ValueError("Provide exactly one of applied_fields or applied_field_arrays.")
-    Hz_applied = {}
-    if applied_field_arrays is not None:
-        applied_field_funcs = None
-        for name in films:
-            arr = applied_field_arrays[name]
-            if not isinstance(arr, torch.Tensor):
-                arr = torch.as_tensor(np.asarray(arr, dtype=dtype))
-            n = len(device.meshes[name].sites)
-            if arr.ndim != 2 or arr.shape[1] != n:
+    with tracing.span("sweep.inputs"):
+        Hz_applied = {}
+        if applied_field_arrays is not None:
+            applied_field_funcs = None
+            for name in films:
+                arr = applied_field_arrays[name]
+                if not isinstance(arr, torch.Tensor):
+                    arr = torch.as_tensor(np.asarray(arr, dtype=dtype))
+                n = len(device.meshes[name].sites)
+                if arr.ndim != 2 or arr.shape[1] != n:
+                    raise ValueError(
+                        f"applied_field_arrays[{name!r}] must have shape (B, {n}), "
+                        f"got {tuple(arr.shape)}."
+                    )
+                Hz_applied[name] = tracing.to_device(arr, torch_device, tdtype) * field_conversion
+            batch_sizes = {name: a.shape[0] for name, a in Hz_applied.items()}
+            if len(set(batch_sizes.values())) > 1:
                 raise ValueError(
-                    f"applied_field_arrays[{name!r}] must have shape (B, {n}), "
-                    f"got {tuple(arr.shape)}."
+                    f"applied_field_arrays must share one batch size across films, got {batch_sizes}."
                 )
-            Hz_applied[name] = arr.to(device=torch_device, dtype=tdtype) * field_conversion
-        batch_sizes = {name: a.shape[0] for name, a in Hz_applied.items()}
-        if len(set(batch_sizes.values())) > 1:
-            raise ValueError(
-                f"applied_field_arrays must share one batch size across films, got {batch_sizes}."
-            )
-        B = next(iter(batch_sizes.values()))
-    else:
-        applied_field_funcs = list(applied_fields)
-        B = len(applied_field_funcs)
-        for name, rows in _applied_field_rows(device, model, applied_field_funcs).items():
-            Hz_applied[name] = torch.as_tensor(
-                rows.astype(dtype) * field_conversion, device=torch_device
-            )
+            B = next(iter(batch_sizes.values()))
+        else:
+            applied_field_funcs = list(applied_fields)
+            B = len(applied_field_funcs)
+            for name, rows in _applied_field_rows(device, model, applied_field_funcs).items():
+                Hz_applied[name] = tracing.to_device(rows.astype(dtype) * field_conversion, torch_device)
 
-    # Circulating currents: (B, n_holes) per film.
-    circ_dicts = None
-    if circulating_currents is not None:
-        if len(circulating_currents) != B:
-            raise ValueError(
-                f"circulating_currents must have length B={B}, got {len(circulating_currents)}."
-            )
-        circ_dicts = [
-            currents_to_floats(c, device.ureg, current_units) for c in circulating_currents
-        ]
-    I_circ = {
-        name: torch.tensor(
-            [
-                [c.get(h, 0.0) for h in model.film_info[name].hole_indices]
-                for c in (circ_dicts or [model.circulating_currents] * B)
-            ],
-            dtype=tdtype,
-            device=torch_device,
-        ).reshape(B, len(model.film_info[name].hole_indices))
-        for name in films
-    }
+        # Circulating currents: (B, n_holes) per film.
+        circ_dicts = None
+        if circulating_currents is not None:
+            if len(circulating_currents) != B:
+                raise ValueError(
+                    f"circulating_currents must have length B={B}, got {len(circulating_currents)}."
+                )
+            circ_dicts = [
+                currents_to_floats(c, device.ureg, current_units) for c in circulating_currents
+            ]
+        I_circ = {
+            name: tracing.to_device(
+                [
+                    [c.get(h, 0.0) for h in model.film_info[name].hole_indices]
+                    for c in (circ_dicts or [model.circulating_currents] * B)
+                ],
+                torch_device,
+                tdtype,
+            ).reshape(B, len(model.film_info[name].hole_indices))
+            for name in films
+        }
     vortex_flux = vortex_flux_quantum(device, current_units)
     multi = len(films) > 1 and iterations > 0
     inv = 1.0 / field_conversion
 
     def to_host(tensors):
-        return {name: t.cpu().numpy() for name, t in tensors.items()}
+        return {name: tracing.to_host(t).numpy() for name, t in tensors.items()}
 
     coupling = _resolve_coupling(model, films, iterations, coupling)
     with highest_matmul_precision():
@@ -1304,32 +1308,36 @@ def solve_many(
             )
             # Current densities and self-fields follow the polished streams.
             Js, self_fields = sweep_outputs_from_streams(film_data, streams)
-        streams, Js, self_fields, others = (to_host(d) for d in (streams, Js, self_fields, others))
-    applied_host = {name: t * inv for name, t in to_host(Hz_applied).items()}
-    if result_dtype is not None and not final_refine:
-        dt = np.dtype(result_dtype)
-        streams, Js, self_fields = (
-            {name: a.astype(dt) for name, a in d.items()} for d in (streams, Js, self_fields)
-        )
+    with tracing.span("sweep.results"):
+        with tracing.span("sweep.to_host"):
+            streams, Js, self_fields, others, applied_host = (
+                to_host(d) for d in (streams, Js, self_fields, others, Hz_applied)
+            )
+        applied_host = {name: t * inv for name, t in applied_host.items()}
+        if result_dtype is not None and not final_refine:
+            dt = np.dtype(result_dtype)
+            streams, Js, self_fields = (
+                {name: a.astype(dt) for name, a in d.items()} for d in (streams, Js, self_fields)
+            )
 
-    def result(pick) -> SweepResult:
-        return SweepResult(
-            model=model,
-            streams={name: pick(a) for name, a in streams.items()},
-            current_densities={name: pick(a) for name, a in Js.items()},
-            self_fields={name: pick(a) * inv for name, a in self_fields.items()},
-            applied_fields=applied_host,
-            other_fields={name: pick(a) * inv for name, a in others.items()} if multi else None,
-            field_units=field_units,
-            current_units=current_units,
-            applied_field_funcs=applied_field_funcs,
-            circulating_currents=circ_dicts,
-            vortex_nPhi0=vortex_amps_flat,
-            terminal_currents=term_dicts,
-        )
+        def result(pick) -> SweepResult:
+            return SweepResult(
+                model=model,
+                streams={name: pick(a) for name, a in streams.items()},
+                current_densities={name: pick(a) for name, a in Js.items()},
+                self_fields={name: pick(a) * inv for name, a in self_fields.items()},
+                applied_fields=applied_host,
+                other_fields={name: pick(a) * inv for name, a in others.items()} if multi else None,
+                field_units=field_units,
+                current_units=current_units,
+                applied_field_funcs=applied_field_funcs,
+                circulating_currents=circ_dicts,
+                vortex_nPhi0=vortex_amps_flat,
+                terminal_currents=term_dicts,
+            )
 
-    if keep_history:
-        return [result(lambda a, it=it: a[it]) for it in range(iterations + 1)]
-    final = result(lambda a: a)
-    final.final_refine_report = polish_report
-    return final
+        if keep_history:
+            return [result(lambda a, it=it: a[it]) for it in range(iterations + 1)]
+        final = result(lambda a: a)
+        final.final_refine_report = polish_report
+        return final
