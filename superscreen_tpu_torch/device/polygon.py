@@ -19,6 +19,7 @@ import numpy as np
 
 from .. import native
 from .. import polygon_ops as ops
+from .. import tracing
 from ..geometry import close_curve
 from ..geometry import rotate as rotate_coords
 
@@ -128,6 +129,13 @@ def offset_ring(ring: np.ndarray, distance: float) -> np.ndarray:
     return np.concatenate([out, out[:1]], axis=0)
 
 
+def _is_simple(ring: np.ndarray) -> bool:
+    """:func:`polygon_ops.is_simple_polygon`, counted as one
+    :data:`~superscreen_tpu_torch.tracing.POLYGON_CHECKS`."""
+    tracing.count(tracing.POLYGON_CHECKS)
+    return ops.is_simple_polygon(ring)
+
+
 def _coerce_ring(points) -> np.ndarray:
     """Normalize any accepted vertex input to a closed CCW ``(n, 2)`` ring,
     raising ``ValueError`` for non-simple or degenerate boundaries."""
@@ -137,7 +145,7 @@ def _coerce_ring(points) -> np.ndarray:
     if ring.ndim != 2 or ring.shape[-1] != 2:
         raise ValueError(f"Expected shape (n, 2), but got {ring.shape}.")
     ring = ops.orient_ccw(ring)
-    if len(ring) < 3 or not ops.is_simple_polygon(ring):
+    if len(ring) < 3 or not _is_simple(ring):
         raise ValueError(
             "The given points do not define a valid simply-connected "
             "polygon (the boundary may be self-intersecting or degenerate)."
@@ -160,13 +168,18 @@ def _anchor_point(ring: np.ndarray, origin) -> np.ndarray:
 class Polygon:
     """A simply-connected region assigned to a :class:`Layer`.
 
+    The ring's simplicity verdict is kept with the bytes of the ring that
+    passed it: setting :attr:`points` checks the ring once, copies and
+    pickles carry the verdict, and :attr:`is_valid` checks again only when
+    the ring's bytes have changed since (an edit in place).
+
     Args:
         name: Name of the polygon.
         layer: Name of the layer in which the polygon is located.
         points: ``(n, 2)`` vertex array or another :class:`Polygon`.
     """
 
-    __slots__ = ("name", "layer", "_points")
+    __slots__ = ("name", "layer", "_points", "_simple_bytes")
 
     def __init__(
         self,
@@ -189,6 +202,8 @@ class Polygon:
     @points.setter
     def points(self, points) -> None:
         self._points = _coerce_ring(points)
+        # The closed ring opens back to the ring that passed the check.
+        self._simple_bytes = self._points.tobytes()
 
     @property
     def polygon(self) -> np.ndarray:
@@ -217,10 +232,19 @@ class Polygon:
     @property
     def is_valid(self) -> bool:
         """Whether the polygon is fully specified (named, on a layer, and
-        geometrically simple)."""
+        geometrically simple).  The simplicity verdict is cached against the
+        ring's bytes: the ring is checked again only if they differ from
+        those of the ring that last passed."""
         if self.name is None or self.layer is None:
             return False
-        return ops.is_simple_polygon(self._points)
+        ring = self._points.tobytes()
+        # A polygon unpickled from before the verdict was kept has no slot.
+        if ring == getattr(self, "_simple_bytes", None):
+            return True
+        if not _is_simple(self._points):
+            return False
+        self._simple_bytes = ring
+        return True
 
     @property
     def area(self) -> float:

@@ -22,8 +22,12 @@ span
 Counters (:data:`D2H_BYTES`, :data:`H2D_BYTES`, :data:`HOST_SYNCS`) are
 added at the host-transfer sites of these calls, through :func:`to_host`
 and :func:`to_device`, only for copies that cross between the host and a
-card, and only while a profiler runs.  Each increment is also attributed
-to the innermost open span (:attr:`Span.counts`).
+card, and only while a profiler runs.  :data:`POLYGON_CHECKS` counts the
+simplicity checks that a :class:`~superscreen_tpu_torch.Polygon` runs on
+its ring: one when a ring is set, and one when
+:attr:`~superscreen_tpu_torch.Polygon.is_valid` finds the ring's bytes
+changed since it last passed.  Each increment is also attributed to the
+innermost open span (:attr:`Span.counts`).
 
 With no profiler running, a span or a counter costs one boolean test: it
 records and allocates nothing.  Spans add no synchronization and no device
@@ -51,6 +55,7 @@ __all__ = [
     "D2H_BYTES",
     "H2D_BYTES",
     "HOST_SYNCS",
+    "POLYGON_CHECKS",
     "Span",
     "count",
     "reset",
@@ -68,6 +73,8 @@ H2D_BYTES = "h2d_bytes"
 #: Blocking reads of device values (``.cpu()``, ``.item()``, ``float()``,
 #: ``bool()`` of a tensor on a card).
 HOST_SYNCS = "host_syncs"
+#: Runs of ``polygon_ops.is_simple_polygon`` on a polygon's ring.
+POLYGON_CHECKS = "polygon_checks"
 
 @dataclass(eq=False)
 class Span:

@@ -1,9 +1,10 @@
 """The port's own spans and transfer counters (``superscreen_tpu_torch.tracing``):
 recorded only while a ``torch.profiler`` profile is open, one span tree per
 entry call, the same results with and without the profiler, host operations
-with no device-side event, and counters that count only copies between the
-host and a card.  This file imports neither JAX nor ``superscreen_tpu``; its
-one ``gpu`` test runs on the card with
+with no device-side event, counters that count only copies between the
+host and a card, and a warm ``solve()`` that checks no polygon ring.  This
+file imports neither JAX nor ``superscreen_tpu``; its one ``gpu`` test runs
+on the card with
 
     python -m pytest --noconftest -m gpu tests/test_torch_tracing.py
 """
@@ -224,6 +225,28 @@ def test_counters_read_zero_on_the_cpu(setup):
     snap = tracing.snapshot()
     assert snap["counters"] == {}
     assert all(s.counts == {} for s in snap["spans"])
+
+
+def test_solutions_own_device_copies_and_check_no_ring(setup):
+    """A warm ``solve()`` gives each ``Solution`` a device of its own, equal
+    to the model's, and checks no polygon ring: each copy carries the
+    verdict of the ring it copies."""
+    model = setup["model"]
+
+    def call():
+        return st.solve(
+            model=model, applied_field=st.sources.ConstantField(FIELDS[1]), iterations=ITERATIONS,
+            progress_bar=False, torch_device="cpu",
+        )
+
+    call()
+    with _profiled():
+        solutions = call()
+    assert tracing.snapshot()["counters"].get(tracing.POLYGON_CHECKS, 0) == 0
+    devices = [s.device for s in solutions]
+    assert len(devices) == ITERATIONS + 1
+    assert len({id(d) for d in devices + [model.device]}) == len(devices) + 1
+    assert all(d == model.device for d in devices)
 
 
 def test_counts_go_to_the_innermost_span_and_nested_entries_keep_the_call():

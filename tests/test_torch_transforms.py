@@ -5,15 +5,23 @@ device's float64 solve against the untranslated one (1e-10) and its
 interpolation at translated points (1e-12, so that no triangle index of
 the old positions survives), ``on_boundary`` and ``contains_points(radius=)``
 decided point for point as matplotlib decides them, the polygon folds,
-``poly_points`` and the mesh statistics."""
+``poly_points`` and the mesh statistics; and that a polygon's ring is
+checked for simplicity once, not again by copies of it or of its device,
+unless it was edited in place."""
+
+import copy
+import pickle
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import superscreen_tpu as sc
 import superscreen_tpu.geometry as geo
 import superscreen_tpu_torch as st
+from superscreen_tpu_torch import io as st_io
+from superscreen_tpu_torch import tracing
 
 torch.set_num_threads(2)
 
@@ -320,3 +328,139 @@ def test_polygons_by_layer_accepts_all():
         assert got == want
     with pytest.raises(ValueError, match="Invalid polygon type"):
         port.polygons_by_layer("nope")
+
+
+BOX = np.array([[0, 0], [2, 0], [2, 2], [0, 2]], float)
+
+
+def _counted(fn):
+    """``fn()`` and the simplicity checks of polygon rings it ran
+    (``tracing.POLYGON_CHECKS``, recorded under a profile)."""
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    checks = tracing.snapshot()["counters"].get(tracing.POLYGON_CHECKS, 0)
+    tracing.reset()
+    return out, checks
+
+
+def _bowtie(polygon):
+    """Swaps two vertices of ``polygon``'s ring in place: its edges cross."""
+    ring = polygon.points
+    ring[[1, 2]] = ring[[2, 1]]
+
+
+def test_a_device_and_its_copies_check_each_ring_once():
+    """Building a device checks each ring once, as it is set; copies of the
+    device, copies of the copies and ``is_valid`` check none again."""
+    device, checks = _counted(lambda: _device(st, mesh=False))
+    assert checks == len(device.get_polygons()) == 4
+    copies, checks = _counted(lambda: [device.copy(), device.copy().copy(), device.copy(with_mesh=False)])
+    assert checks == 0
+    for clone in copies:
+        assert clone == device and clone is not device
+        assert all(a is not b for a, b in zip(clone.get_polygons(), device.get_polygons()))
+    valid, checks = _counted(lambda: [p.is_valid for p in device.get_polygons()])
+    assert valid == [True] * 4 and checks == 0
+
+
+def test_a_ring_edited_in_place_is_checked_again():
+    """An edit in place that keeps the ring simple is checked once and
+    accepted; one that makes a bowtie fails ``is_valid`` on every call, and
+    the device, a copy of it, or a new device with it raise as they do for a
+    bowtie given to the constructor."""
+    layers = [st.Layer("base", Lambda=1.0, z0=0.0)]
+    film = st.Polygon("film", layer="base", points=BOX)
+    device = st.Device("d", layers=layers, films=[film])
+    ring = film.points
+    ring *= 2.0
+    valid, checks = _counted(lambda: (film.is_valid, film.is_valid))
+    assert valid == (True, True) and checks == 1
+    clone, checks = _counted(device.copy)
+    assert checks == 0 and clone.films["film"].points.max() == 4.0
+    _bowtie(film)
+    valid, checks = _counted(lambda: (film.is_valid, film.is_valid))
+    assert valid == (False, False) and checks == 2
+    with pytest.raises(ValueError, match="film is not valid"):
+        device.copy()
+    with pytest.raises(ValueError, match="film is not valid"):
+        st.Device("again", layers=layers, films=[film])
+    with pytest.raises(ValueError, match="valid simply-connected"):
+        st.Polygon("film", layer="base", points=film.points)
+
+
+def _through_hdf5(polygon, tmp_path):
+    h5py = pytest.importorskip("h5py")
+    with h5py.File(tmp_path / "p.h5", "w") as f:
+        polygon.to_hdf5(f.create_group("p"))
+    with h5py.File(tmp_path / "p.h5", "r") as f:
+        return st.Polygon.from_hdf5(f["p"])
+
+
+def _through_io(polygon, tmp_path):
+    h5py = pytest.importorskip("h5py")
+    with h5py.File(tmp_path / "p.h5", "w") as f:
+        st_io.serialize_obj(f, polygon, "p")
+    with h5py.File(tmp_path / "p.h5", "r") as f:
+        return st_io.deserialize_obj(f, "p")
+
+
+def _without_verdict(polygon, tmp_path):
+    """The polygon as a pickle of it made without the verdict's slot
+    unpickles: name, layer and ring alone."""
+    clone = object.__new__(st.Polygon)
+    for slot in ("name", "layer", "_points"):
+        setattr(clone, slot, copy.deepcopy(getattr(polygon, slot)))
+    return clone
+
+
+ROUTES = {
+    "copy": lambda p, _: p.copy(),
+    "deepcopy": lambda p, _: copy.deepcopy(p),
+    "pickle": lambda p, _: pickle.loads(pickle.dumps(p)),
+    "io": _through_io,
+    "hdf5": _through_hdf5,
+    "without_verdict": _without_verdict,
+}
+
+
+def _shifted():
+    polygon = st.Polygon("p", layer="l", points=BOX)
+    ring = polygon.points
+    ring += 1.0
+    return polygon
+
+
+def _bowtied():
+    polygon = st.Polygon("p", layer="l", points=BOX)
+    _bowtie(polygon)
+    return polygon
+
+
+STATES = {
+    "valid": lambda: st.Polygon("p", layer="l", points=BOX),
+    "unnamed": lambda: st.Polygon(layer="l", points=BOX),
+    "edited": _shifted,
+    "bowtie": _bowtied,
+}
+
+
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_copied_pickled_and_read_polygons_keep_is_valid(tmp_path, route, state):
+    """A copied, pickled or read-back polygon gives its source's
+    ``is_valid`` (a bowtie cannot be written to HDF5 and read back: the
+    reader checks the ring as the constructor does); a copy or pickle of a
+    ring that passed carries the verdict and checks nothing again."""
+    source = STATES[state]()
+    want = source.is_valid
+    if route == "hdf5" and state == "bowtie":
+        with pytest.raises(ValueError, match="valid simply-connected"):
+            ROUTES[route](source, tmp_path)
+        return
+    clone = ROUTES[route](source, tmp_path)
+    assert type(clone) is st.Polygon and clone == source
+    valid, checks = _counted(lambda: clone.is_valid)
+    assert valid == want
+    if want and route in ("copy", "deepcopy", "pickle", "io"):
+        assert checks == 0
