@@ -19,13 +19,13 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from benchmark import drives, harness  # noqa: E402
+from benchmark import harness  # noqa: E402
 
 
 def control_readings(config, traffic, seed, calls, device):
     """The control's reading of each of the first ``calls`` draws of
     ``seed``'s window."""
-    entry = drives.ENTRIES[traffic["entry"]](config, traffic, device)
+    entry = harness.entry_class(traffic["entry"])(config, traffic, [device])
     rng = np.random.default_rng([seed, 0])
     draws = [entry.draw(rng) for _ in range(calls)]
     return entry.control(draws, device)

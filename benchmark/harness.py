@@ -61,36 +61,67 @@ def cell_inputs(bench: dict, workload: str, root: Path = ROOT):
     )
 
 
-def layer_reader(name: str, root: Path = ROOT, kind: str = "layer_metrics"):
-    """The reader ``read(ctx)`` of the metric ``name``:
-    ``benchmark/layer_metrics/<name>.py`` for a per-layer metric,
-    ``benchmark/end_to_end/<name>.py`` for an end-to-end one."""
+def _module(kind: str, name: str, root: Path):
+    """The module ``benchmark/<kind>/<name>.py`` under ``root``."""
     path = root / "benchmark" / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"benchmark_{kind}_{name.replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
 
 
-def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace, torch_device, t0):
-    """Runs one cell and returns the result dict (see README.md)."""
+def layer_reader(name: str, root: Path = ROOT, kind: str = "layer_metrics"):
+    """The reader ``read(ctx)`` of the metric ``name``:
+    ``benchmark/layer_metrics/<name>.py`` for a per-layer metric,
+    ``benchmark/end_to_end/<name>.py`` for an end-to-end one."""
+    return _module(kind, name, root).read
+
+
+def entry_class(name: str, root: Path = ROOT):
+    """The kind of call ``name`` (a traffic mix's ``entry``): ``ENTRY``, a
+    :class:`drives.Entry` subclass, of ``benchmark/entries/<name>.py``."""
+    return _module("entries", name, root).ENTRY
+
+
+def cell_cards(torch_device: str, chips: int):
+    """The cards of a cell of ``chips`` chips: ``cuda:0`` to
+    ``cuda:<chips - 1>`` on the card, ``torch_device`` repeated elsewhere
+    (a CPU rehearsal)."""
+    if torch_device.startswith("cuda"):
+        return [f"cuda:{i}" for i in range(chips)]
+    return [torch_device] * chips
+
+
+def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace, torch_device, t0, root: Path = ROOT):
+    """Runs one cell and returns the result dict (see README.md); its kind
+    of call and its metrics' readers are found under ``root``."""
     import torch
 
     import superscreen_tpu_torch as st
 
     on_card = torch_device.startswith("cuda")
-    entry = drives.ENTRIES[traffic["entry"]](config, traffic, torch_device)
+    cards = cell_cards(torch_device, int(cell["chips"]))
+    indices = sorted({torch.device(c).index or 0 for c in cards}) if on_card else []
+    entry = entry_class(traffic["entry"], root)(config, traffic, cards)
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.init()  # the allocator's statistics of a card exist from here
+    for i in indices:
+        torch.cuda.reset_peak_memory_stats(i)
     spans = spans_mod.Spans()
     tracing = spans_mod.installed(spans) if trace else _nothing()
     failures = []
+    # Set-up's phases, for the run's record: start (imports, the card),
+    # the model, and each warm call.
+    phases = {"start": time.perf_counter() - t0}
     with tracing:
         entry.setup(st)
+        _sync(torch, indices)
+        phases["model"] = time.perf_counter() - t0 - sum(phases.values())
         warm = np.random.default_rng([seed, 2])
-        for _ in range(int(traffic.get("warm_calls", 2))):
+        for i in range(int(traffic.get("warm_calls", 2))):
             entry.call(entry.draw(warm))
-        _sync(torch, on_card)
+            _sync(torch, indices)
+            phases[f"warm{i}"] = time.perf_counter() - t0 - sum(phases.values())
         spans.reset()
         # What set-up made stays; the window's collections scan only what
         # the calls make.
@@ -117,18 +148,20 @@ def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace,
                 points += entry.points(params)
                 models += entry.models_per_call
                 kept.offer((params, out))
-            _sync(torch, on_card)
+            _sync(torch, indices)
             window_s = time.perf_counter() - start
-    memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [int(torch.cuda.max_memory_allocated(i)) for i in indices]
     device = {
         "platform": "gpu" if on_card else "cpu",
         "kind": torch.cuda.get_device_name() if on_card else "cpu",
-        "count": 1,
-        "memory_peak_bytes": int(memory_peak),
+        "count": len(cards),
+        "memory_peak_bytes": max(peaks, default=0),
     }
+    if len(cards) > 1:
+        device["memory_peak_bytes_per_card"] = peaks
     result = {"correct": None, "attempted": len(latencies), "failed": len(failures)}
     if trace:
-        reduced = trace_mod.reduce(prof)
+        reduced = trace_mod.reduce(prof, indices or None)
         ctx = SimpleNamespace(
             points=points, models=models, calls=len(latencies), window_s=window_s,
             busy_s=reduced.busy_s, kernels=reduced.kernels, span_device_s=reduced.span_device_s,
@@ -137,10 +170,12 @@ def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace,
         )
         metrics = {}
         for m in per_layer:
-            value = layer_reader(m["name"])(ctx)
+            value = layer_reader(m["name"], root)(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         device.update(busy_s=reduced.busy_s, window_s=window_s)
+        if len(cards) > 1:
+            device["busy_s_per_card"] = reduced.busy_s_per_card
         result["breakdown"] = {"device_ops": reduced.device_ops, "idle_gaps": reduced.idle_gaps}
     else:
         window = SimpleNamespace(
@@ -148,7 +183,7 @@ def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace,
         )
         metrics = {}
         for m in end_to_end:
-            value = layer_reader(m["name"], kind="end_to_end")(window)
+            value = layer_reader(m["name"], root, "end_to_end")(window)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     result["metrics"] = metrics
@@ -168,7 +203,8 @@ def run_cell(cell, config, traffic, per_layer, end_to_end, seed, seconds, trace,
         c.name: {"value": c.value if math.isfinite(c.value) else None, "limit": c.limit} for c in checks
     }
     info = dict(
-        setup_s=setup_s, window_s=window_s, calls=len(latencies), points=points, models=models,
+        setup_s=setup_s, setup_phases_s=",".join(f"{k}:{v:.3f}" for k, v in phases.items()),
+        window_s=window_s, calls=len(latencies), points=points, models=models,
         checked_calls=len(samples), reference_s=reference_s, card=rates.card_limits() if on_card else "cpu",
     )
     return result, failures, found, info
@@ -182,9 +218,10 @@ class _nothing:
         return False
 
 
-def _sync(torch, on_card):
-    if on_card:
-        torch.cuda.synchronize()
+def _sync(torch, indices):
+    """Waits for every card of the cell."""
+    for i in indices:
+        torch.cuda.synchronize(i)
 
 
 def _profiler(torch, on_card):

@@ -19,6 +19,10 @@ FIELD_PER_MT = 1e-3 / MU_0
 
 
 def _ring(p: dict) -> np.ndarray:
+    """A polygon's vertices: its ``points``, or its ``circle`` [radius,
+    points] about the origin."""
+    if "points" in p:
+        return np.asarray(p["points"], dtype=np.float64)
     return circle(p["circle"][0], p["circle"][1])
 
 

@@ -12,7 +12,8 @@ import pytest
 from benchmark import control, harness
 
 CELLS = {"rings27k_sweep": "four_ring_27k", "rings27k_solve": "four_ring_27k",
-         "rings27k_refactor": "four_ring_27k", "scan64": "scan_config5"}
+         "rings27k_refactor": "four_ring_27k", "scan64": "scan_config5",
+         "rings27k_sweep_4chip": "four_ring_27k"}
 SEED = 2**31 + 5
 
 

@@ -2,8 +2,9 @@
 timed path broken underneath, comes out not correct; the same run with the
 path sound comes out correct.  The faults: an answer altered where it is
 produced, half of the batch left out and the mean of the rest put in its
-place, and a coupling round that returns no field (the state unchanged).
-The cells run on one chip, so there is no exchange between chips to drop."""
+place, a coupling round that returns no field (the state unchanged), and,
+in the cell on four cards (rehearsed here over four CPU slots), the data
+rows' results left ungathered."""
 
 import importlib
 import time
@@ -15,7 +16,8 @@ import torch
 from benchmark import harness
 
 CELLS = {"rings27k_sweep": "four_ring_27k", "rings27k_solve": "four_ring_27k",
-         "rings27k_refactor": "four_ring_27k", "scan64": "scan_config5"}
+         "rings27k_refactor": "four_ring_27k", "scan64": "scan_config5",
+         "rings27k_sweep_4chip": "four_ring_27k"}
 
 
 def run(small, workload, seconds=0.6):
@@ -88,6 +90,29 @@ def no_coupling(monkeypatch):
     monkeypatch.setattr(sweep, "_coupling_round", broken)
 
 
+def no_exchange(monkeypatch):
+    """The exchange between the cards left out: the first card's buffer
+    for each row's results is never filled (zeros where rows after the
+    first would land)."""
+    from superscreen_tpu_torch import sweep
+
+    fn = sweep._run_data_rows
+
+    def broken(runner, film_data, Hz_applied, I_circ, *args, batch_axis=0, **kwargs):
+        outs = fn(runner, film_data, Hz_applied, I_circ, *args, batch_axis=batch_axis, **kwargs)
+        B = next(iter(Hz_applied.values())).shape[0]
+        first = -(-B // film_data.mesh.shape["data"])
+
+        def only_first(v):
+            v = v.clone()
+            v.narrow(batch_axis, first, v.shape[batch_axis] - first).zero_()
+            return v
+
+        return tuple({k: only_first(v) for k, v in d.items()} for d in outs)
+
+    monkeypatch.setattr(sweep, "_run_data_rows", broken)
+
+
 @pytest.mark.parametrize("workload", sorted(CELLS))
 def test_a_sound_run_is_correct(small, workload):
     result = run(small, workload)
@@ -102,6 +127,8 @@ def test_a_sound_run_is_correct(small, workload):
         ("rings27k_refactor", altered_streams), ("rings27k_refactor", half_batch),
         ("rings27k_refactor", no_coupling),
         ("scan64", altered_flux), ("scan64", half_batch),
+        ("rings27k_sweep_4chip", altered_streams), ("rings27k_sweep_4chip", half_batch),
+        ("rings27k_sweep_4chip", no_coupling), ("rings27k_sweep_4chip", no_exchange),
     ],
     ids=lambda x: getattr(x, "__name__", x),
 )

@@ -57,10 +57,11 @@ def test_the_reference_loads_nothing_of_the_program():
 
 
 def test_a_run_of_the_program_loads_no_jax():
-    """What a run imports of the program, its drives and its spans."""
+    """What a run imports of the program, its kinds of call and its spans."""
     modules = _modules_after(
-        "import superscreen_tpu_torch, superscreen_tpu_torch.squids.scanning\n"
+        "import superscreen_tpu_torch, superscreen_tpu_torch.squids.scanning, superscreen_tpu_torch.parallel\n"
         "from benchmark import harness, drives, spans, trace, control\n"
+        "for p in (harness.ROOT / 'benchmark' / 'entries').glob('*.py'): harness.entry_class(p.stem)\n"
         "import torch.profiler"
     )
     assert harness.forbidden_modules(modules) == []

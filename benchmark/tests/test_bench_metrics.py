@@ -77,8 +77,8 @@ def test_check_needs_a_finite_value_within_the_limit():
 def test_trace_reduction_on_a_made_up_timeline():
     from benchmark import trace
 
-    device = [(0.0, 1.0, "k1"), (0.5, 2.0, "k2"), (3.0, 4.0, "Memcpy DtoH"), (6.0, 7.0, "k1")]
-    annotations = [(0.0, 2.0, "bench.a"), (2.5, 7.5, "bench.b")]
+    device = [(0.0, 1.0, "k1", 0), (0.5, 2.0, "k2", 0), (3.0, 4.0, "Memcpy DtoH", 0), (6.0, 7.0, "k1", 0)]
+    annotations = [(0.0, 2.0, "bench.a", 0), (2.5, 7.5, "bench.b", 0)]
     cpu = [(0.0, 8.0, "call"), (1.5, 3.5, "bench.b"), (2.0, 2.9, "aten::copy_"), (4.5, 5.5, "aten::item")]
     t = trace.reduce_events(device, annotations, cpu)
     assert t.busy_s == 4.0 and t.kernels == 3
@@ -86,3 +86,24 @@ def test_trace_reduction_on_a_made_up_timeline():
     assert t.device_ops[0] == ["k1", 2.0]
     # Gaps: 2-3 (the host in bench.b's copy), 4-6 (in call).
     assert dict(t.idle_gaps) == {"bench.b > aten::copy_": 1.0, "call": 2.0}
+
+
+def test_trace_reduction_per_card_on_two_devices():
+    from benchmark import trace
+
+    device = [(0.0, 1.0, "k1", 0), (0.5, 2.0, "k2", 0), (0.0, 1.0, "k1", 1), (3.0, 4.0, "Memcpy PtoP", 1)]
+    # bench.a runs 0-2 on card 0 and 0-4 on card 1; bench.b is a range on
+    # card 1 only, over an interval in which card 0 alone is busy.
+    annotations = [(0.0, 2.0, "bench.a", 0), (0.0, 4.0, "bench.a", 1), (1.2, 2.0, "bench.b", 1)]
+    cpu = [(0.0, 8.0, "call"), (1.5, 3.5, "aten::copy_")]
+    t = trace.reduce_events(device, annotations, cpu, cards=[0, 1, 2])
+    # Card 2 ran nothing: idle all the window, and in the mean.
+    assert t.busy_s_per_card == [2.0, 2.0, 0.0] and t.busy_s == pytest.approx(4 / 3)
+    assert t.kernels == 3
+    assert t.span_device_s == {"bench.a": 4.0, "bench.b": 0.0}
+    assert dict(t.device_ops) == pytest.approx({"k1": 2 / 3, "k2": 0.5, "Memcpy PtoP": 1 / 3})
+    # Card 1's gap 1-3 began while the host was in "call"; card 0 has none.
+    assert dict(t.idle_gaps) == pytest.approx({"call": 2 / 3})
+    # Without cards, the cards are those that ran something.
+    one = trace.reduce_events([e for e in device if e[3] == 1], annotations, cpu)
+    assert one.busy_s_per_card == [2.0] and one.busy_s == 2.0 and one.span_device_s["bench.a"] == 2.0

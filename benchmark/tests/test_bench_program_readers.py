@@ -84,5 +84,5 @@ def test_every_new_reader_is_in_the_benchmark_for_its_cells():
     bench = harness.load_bench()
     cells = {m["name"]: m.get("workloads") for m in bench["per_layer"]}
     for name in READERS:
-        want = ["scan64"] if name.endswith(".scan") else ["rings27k_sweep", "rings27k_solve"]
+        want = ["scan64"] if name.endswith(".scan") else ["rings27k_sweep", "rings27k_solve", "rings27k_sweep_4chip"]
         assert cells[name] == want

@@ -6,44 +6,44 @@ import numpy as np
 
 import superscreen_tpu_torch as st
 
-from benchmark import drives
+from benchmark import harness
 from benchmark.reference import films as ref
 
 
 def test_stack_reference_meets_the_program(small):
     cfg = small("four_ring_27k", "float64")
-    entry = drives.SolveMany(cfg, {"points_per_call": 3, "field_mT": [0.1, 1.0]}, "cpu")
+    entry = harness.entry_class("solve_many")(cfg, {"points_per_call": 3, "field_mT": [0.1, 1.0]}, ["cpu"])
     entry.setup(st)
     fields = [0.13, 0.5, 0.97]
     out = entry.call(fields)
     basis = entry.reference_basis()
-    assert drives.SolveMany.stream_error(out, fields, basis) < 1e-12
+    assert entry.stream_error(out, fields, basis) < 1e-12
 
 
 def test_refactored_stack_reference_meets_the_program(small):
     cfg = small("four_ring_27k", "float64")
-    entry = drives.RefactorSweep(cfg, {"points_per_call": 2, "field_mT": [0.1, 1.0], "lambda_scale": [0.8, 1.2]}, "cpu")
+    entry = harness.entry_class("refactor_sweep")(cfg, {"points_per_call": 2, "field_mT": [0.1, 1.0], "lambda_scale": [0.8, 1.2]}, ["cpu"])
     entry.setup(st)
     params = entry.draw(np.random.default_rng(5))
     out = entry.call(params)
-    assert drives.SolveMany.stream_error(out, params[1], entry.reference_basis(params[0])) < 1e-12
+    assert entry.stream_error(out, params[1], entry.reference_basis(params[0])) < 1e-12
 
 
 def test_solve_reference_meets_the_program(small):
     cfg = small("four_ring_27k", "float64")
-    entry = drives.Solve(cfg, {"field_mT": [0.1, 1.0]}, "cpu")
+    entry = harness.entry_class("solve")(cfg, {"field_mT": [0.1, 1.0]}, ["cpu"])
     entry.setup(st)
     out = entry.call([0.42])
-    assert drives.Solve.stream_error(out, [0.42], entry.reference_basis()) < 1e-12
+    assert entry.stream_error(out, [0.42], entry.reference_basis()) < 1e-12
 
 
 def test_scan_reference_meets_the_program(small):
     cfg = small("scan_config5", "float64")
-    entry = drives.SusceptibilityScan(cfg, {"positions": 12, "x_um": [-8.0, 8.0], "y_um": [-2.0, 2.0]}, "cpu")
+    entry = harness.entry_class("susceptibility_scan")(cfg, {"positions": 12, "x_um": [-8.0, 8.0], "y_um": [-2.0, 2.0]}, ["cpu"])
     entry.setup(st)
     M = entry.call(0.7)
     (want,) = entry.reference_scan([0.7], ref.F64, "cpu")
-    assert drives.SusceptibilityScan.scan_error(M, want) < 1e-12
+    assert entry.scan_error(M, want) < 1e-12
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():

@@ -1,8 +1,10 @@
-"""Reduction of a ``torch.profiler`` trace of the measured window: the
-device's busy time (the union of the intervals in which an operation ran
-on it), its kernel launches, the device time under each benchmark span,
-the operations that took the most device time, and the idle gaps by what
-the host was doing when they began."""
+"""Reduction of a ``torch.profiler`` trace of the measured window, card by
+card: each card's busy time (the union of the intervals in which an
+operation ran on it), the kernel launches, the device time under each
+benchmark span, the operations that took the most device time, and the
+idle gaps by what the host was doing when they began.  Busy time, the
+operations' times and the idle gaps are means over the cell's cards;
+launches and the device time under a span are sums over them."""
 
 import bisect
 from collections import defaultdict
@@ -20,6 +22,7 @@ class Trace:
     span_device_s: Dict[str, float]
     device_ops: List[Tuple[str, float]]
     idle_gaps: List[Tuple[str, float]]
+    busy_s_per_card: List[float]
 
 
 def _union(intervals):
@@ -70,52 +73,70 @@ def _host_labels(cpu, times):
     return out
 
 
-def reduce_events(device, annotations, cpu) -> Trace:
-    """The :class:`Trace` of the device operations ``(start, end, name)``,
-    the device side of the ``bench.*`` ranges ``(start, end, name)`` (the
-    profiler's GPU user annotations, from the first to the last operation
-    each range launched: a range, not work) and the host events of the
-    thread that drove the window ``(start, end, name)``, times in seconds.
-    The device time under a span is the device's busy time inside its
-    ranges."""
-    busy, merged = _union((e[0], e[1]) for e in device)
+def _by_card(events):
+    """``{card: [(start, end, name), ...]}`` of events ``(start, end, name,
+    card)``."""
+    out = defaultdict(list)
+    for start, end, name, card in events:
+        out[card].append((start, end, name))
+    return out
+
+
+def reduce_events(device, annotations, cpu, cards=None) -> Trace:
+    """The :class:`Trace` of the device operations ``(start, end, name,
+    card)``, the device side of the ``bench.*`` ranges ``(start, end, name,
+    card)`` (the profiler's GPU user annotations, from the first to
+    the last operation each range launched on that card: a range, not work)
+    and the host events of the thread that drove the window ``(start, end,
+    name)``, times in seconds.  ``cards`` are the cell's card indices
+    (default: those that ran an operation); a card that ran nothing is idle
+    all the window.  The device time under a span is each card's busy time
+    inside its ranges on that card, summed over the cards."""
+    ops, ranges_by_card = _by_card(device), _by_card(annotations)
+    cards = sorted(cards if cards is not None else ops) or [0]
+    busy, spans = [], defaultdict(float)
+    per_op, gaps = defaultdict(float), defaultdict(float)
+    for card in cards:
+        events = ops.get(card, [])
+        total, merged = _union((e[0], e[1]) for e in events)
+        busy.append(total)
+        for start, end, name in events:
+            per_op[name[:NAME_CHARS]] += (end - start) / len(cards)
+        ranges = defaultdict(list)
+        for start, end, name in ranges_by_card.get(card, []):
+            ranges[name].append((start, end))
+        for name, r in ranges.items():
+            spans[name] += _overlap(merged, sorted(r))
+        ends = [m[1] for m in merged[:-1]]
+        for (_, end), (start, _), label in zip(merged[:-1], merged[1:], _host_labels(cpu, ends)):
+            gaps[label] += (start - end) / len(cards)
     kernels = sum(1 for e in device if not e[2].startswith(("Memcpy", "Memset")))
-    per_op = defaultdict(float)
-    for start, end, name in device:
-        per_op[name[:NAME_CHARS]] += end - start
-    ranges = defaultdict(list)
-    for start, end, name in annotations:
-        ranges[name].append((start, end))
-    spans = {name: _overlap(merged, sorted(r)) for name, r in ranges.items()}
-    gaps = defaultdict(float)
-    ends = [m[1] for m in merged[:-1]]
-    for (_, end), (start, _), label in zip(merged[:-1], merged[1:], _host_labels(cpu, ends)):
-        gaps[label] += start - end
     top = sorted(per_op.items(), key=lambda kv: -kv[1])[:TOP]
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP]
     return Trace(
-        busy_s=busy, kernels=kernels, span_device_s=spans,
-        device_ops=[[k, v] for k, v in top], idle_gaps=[[k, v] for k, v in idle],
+        busy_s=sum(busy) / len(busy), kernels=kernels, span_device_s=dict(spans),
+        device_ops=[[k, v] for k, v in top], idle_gaps=[[k, v] for k, v in idle], busy_s_per_card=busy,
     )
 
 
-def reduce(prof) -> Trace:
-    """The :class:`Trace` of a finished ``torch.profiler.profile``, read
-    from the profiler's raw events (the host thread that drove the window
-    is the one with the most events)."""
+def reduce(prof, cards=None) -> Trace:
+    """The :class:`Trace` of a finished ``torch.profiler.profile`` over the
+    card indices ``cards``, read from the profiler's raw events (a device
+    event's card is its ``device_index``; the host thread that drove the
+    window is the one with the most events)."""
     from torch.autograd import DeviceType
 
     raw = [
-        (e.start_ns(), e.end_ns(), e.name(), e.device_type(), e.start_thread_id())
+        (e.start_ns(), e.end_ns(), e.name(), e.device_type(), e.start_thread_id(), e.device_index())
         for e in prof.profiler.kineto_results.events()
     ]
     base = min((r[0] for r in raw), default=0)
     device, annotations, cpu = [], [], defaultdict(list)
-    for start, end, name, kind, thread in raw:
+    for start, end, name, kind, thread, card in raw:
         item = ((start - base) / 1e9, (end - base) / 1e9, name)
         if kind == DeviceType.CUDA:
-            (annotations if name.startswith("bench.") else device).append(item)
+            (annotations if name.startswith("bench.") else device).append(item + (card,))
         elif kind == DeviceType.CPU:
             cpu[thread].append(item)
     main = max(cpu, key=lambda k: len(cpu[k])) if cpu else None
-    return reduce_events(device, annotations, cpu.get(main, []))
+    return reduce_events(device, annotations, cpu.get(main, []), cards)
