@@ -47,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import Device
 from ..io import new_group
 from ..ops import kernels, linalg
@@ -714,7 +715,9 @@ def solve_from_boundary_stream(
     matrix products and solves run on the systems' torch device; ``g``
     stays a float64 host array.  With ``hp_system`` they run on its
     float64 blocks, and each solve is refined to float64 around the
-    float32 factors."""
+    float32 factors.  While a profiler runs, the copies count in
+    :mod:`~superscreen_tpu_torch.tracing`'s transfer counters and each
+    solve in its ``terminal_solves``."""
     if hp_system is not None:
         terminal_systems = _hp_terminal_systems(terminal_systems, hp_system)
     weights = device.meshes[film_info.name].operators.weights
@@ -725,15 +728,16 @@ def solve_from_boundary_stream(
         # boundary's or a hole's columns), summed in float64 whatever the
         # block's dtype.
         A = system.A
-        x = torch.as_tensor(g[system.indices, None], device=A.device)
+        x = tracing.to_device(g[system.indices, None], A.device)
         zero = torch.zeros((A.shape[0], 1), dtype=torch.float64, device=A.device)
-        return -linalg.system_residual(A, zero, x)[:, 0].cpu().numpy()
+        return -tracing.to_host(linalg.system_residual(A, zero, x)[:, 0]).numpy()
 
     def solve(system: LinearSystem, Ha_eff: np.ndarray) -> None:
-        h = torch.as_tensor(
-            -Ha_eff[system.indices], dtype=system.A.dtype, device=system.A.device
-        )
-        g[system.indices] = linalg.lu_solve_refined(system.A, system.lu_piv, h).cpu().numpy()
+        h = tracing.to_device(-Ha_eff[system.indices], system.A.device, system.A.dtype)
+        tracing.count(tracing.TERMINAL_SOLVES)
+        g[system.indices] = tracing.to_host(
+            linalg.lu_solve_refined(system.A, system.lu_piv, h)
+        ).numpy()
 
     solve(terminal_systems.film_without_boundary, effective_field(terminal_systems.boundary))
     if not terminal_systems.holes:

@@ -198,11 +198,11 @@ def _terminal_boundary_ha(
     edge_lengths, normals = path_vectors(close_curve(boundary_sites))
     ha = kernels.boundary_effective_field(
         *(
-            torch.as_tensor(a, dtype=like.dtype, device=like.device)
+            tracing.to_device(a, like.device, like.dtype)
             for a in (points, centers, edge_lengths, normals, stream_mid)
         )
     )
-    return ha.cpu().numpy()
+    return tracing.to_host(ha).numpy()
 
 
 def _terminal_fields(model, film_name: str) -> Dict[str, object]:
@@ -808,6 +808,7 @@ class SweepResult:
         return [self.solution(i) for i in range(self.num_solutions)]
 
 
+@tracing.traced("sweep.terminals")
 def _apply_terminal_sweeps(model, film_data, terminal_currents, B: int, current_units: str):
     """Folds a length-B terminal-current sweep into ``film_data``: each
     terminal film's ``g_offset``/``ha_offset`` become ``(B, n)`` built from
@@ -894,15 +895,16 @@ def _apply_terminal_sweeps(model, film_data, terminal_currents, B: int, current_
         c = -raw.max(axis=1) + np.ptp(raw, axis=1) / 2.0
         c = np.where(np.all(coeff == 0.0, axis=1), 0.0, c)
         coeff = np.concatenate([coeff, c[:, None]], axis=1)  # (B, T)
-        like = dict(dtype=data.weights.dtype, device=data.weights.device)
+        like = (data.weights.device, data.weights.dtype)
         out[film] = replace(
             data,
-            g_offset=torch.as_tensor(coeff @ np.stack(units_g), **like),
-            ha_offset=torch.as_tensor(coeff @ np.stack(units_h), **like),
+            g_offset=tracing.to_device(coeff @ np.stack(units_g), *like),
+            ha_offset=tracing.to_device(coeff @ np.stack(units_h), *like),
         )
     return out, per_point
 
 
+@tracing.traced("sweep.vortices")
 def _apply_vortex_amplitudes(model, film_data, vortex_nPhi0, B: int):
     """Folds per-sweep-point vortex amplitudes into ``film_data`` (each
     film's ``vortex_nphi0`` becomes ``(B, n_v)``).  Returns the updated
@@ -937,8 +939,8 @@ def _apply_vortex_amplitudes(model, film_data, vortex_nPhi0, B: int):
         if amps.shape[1]:
             out[name] = replace(
                 out[name],
-                vortex_nphi0=torch.as_tensor(
-                    np.ascontiguousarray(amps), device=out[name].weights.device
+                vortex_nphi0=tracing.to_device(
+                    np.ascontiguousarray(amps), out[name].weights.device
                 ),
             )
     flat = np.concatenate([per_film[name] for name in counts], axis=1)

@@ -26,8 +26,11 @@ card, and only while a profiler runs.  :data:`POLYGON_CHECKS` counts the
 simplicity checks that a :class:`~superscreen_tpu_torch.Polygon` runs on
 its ring: one when a ring is set, and one when
 :attr:`~superscreen_tpu_torch.Polygon.is_valid` finds the ring's bytes
-changed since it last passed.  Each increment is also attributed to the
-innermost open span (:attr:`Span.counts`).
+changed since it last passed.  :data:`TERMINAL_SOLVES` counts the solves
+of a terminal film's transport bootstrap
+(:func:`~superscreen_tpu_torch.solver.solve_film.solve_from_boundary_stream`).
+Each increment is also attributed to the innermost open span
+(:attr:`Span.counts`).
 
 With no profiler running, a span or a counter costs one boolean test: it
 records and allocates nothing.  Spans add no synchronization and no device
@@ -57,6 +60,7 @@ __all__ = [
     "HOST_SYNCS",
     "POLYGON_CHECKS",
     "Span",
+    "TERMINAL_SOLVES",
     "count",
     "reset",
     "snapshot",
@@ -75,6 +79,10 @@ H2D_BYTES = "h2d_bytes"
 HOST_SYNCS = "host_syncs"
 #: Runs of ``polygon_ops.is_simple_polygon`` on a polygon's ring.
 POLYGON_CHECKS = "polygon_checks"
+#: Refined LU solves of a terminal film's transport bootstrap: one with the
+#: boundary fixed, and one more with the holes pinned where the film has
+#: holes.
+TERMINAL_SOLVES = "terminal_solves"
 
 @dataclass(eq=False)
 class Span:

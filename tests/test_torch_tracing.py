@@ -286,6 +286,131 @@ def test_traced_functions_keep_their_names_and_signatures():
         assert inspect.signature(fn) == inspect.signature(fn.__wrapped__)
 
 
+def _weak_spot(x, y, x0=1.0, y0=0.5, sigma=1.0, depth=0.5):
+    return 1.0 + depth * np.exp(-((x - x0) ** 2 + (y - y0) ** 2) / (2 * sigma**2))
+
+
+def _terminal_strip(dtype="float32"):
+    """A coarse terminal strip with a hole and a weak spot in Lambda, drawn
+    at its mesh's edge length as ``chip_smoke.transport_stack`` draws one."""
+    width, height, h = 6.0, 3.0, 0.4
+    film = st.Polygon(
+        "strip", layer="base", points=st.geometry.box(width, height, points=int(2 * (width + height) / h))
+    )
+    hole = st.Polygon("strip_hole", layer="base", points=st.geometry.circle(0.6, points=10, center=(-1.5, 0.0)))
+    terminals = [
+        st.Polygon(name, points=st.geometry.box(h / 4, height, center=(x, 0)))
+        for name, x in (("source", -width / 2), ("drain", width / 2))
+    ]
+    device = st.Device(
+        "terminal_strip", layers=[st.Layer("base", Lambda=st.Parameter(_weak_spot), z0=0)], films=[film],
+        holes=[hole], terminals={"strip": terminals}, solve_dtype=dtype,
+    )
+    device.make_mesh(min_points=250)
+    return device
+
+
+@pytest.fixture(scope="module")
+def transport():
+    device = _terminal_strip()
+    vortices = [st.Vortex(x=1.2, y=0.4, film="strip"), st.Vortex(x=-0.5, y=-0.8, film="strip")]
+    model = st.factorize_model(device=device, current_units="uA", vortices=vortices, torch_device="cpu")
+    return dict(device=device, model=model)
+
+
+def _bias_sweep(model, driven=True):
+    """A three-point sweep of the terminal strip: bias and vortex
+    amplitudes per point when ``driven``, the fields alone otherwise."""
+    fields = [st.sources.ConstantField(b) for b in FIELDS]
+    drive = {}
+    if driven:
+        drive = dict(
+            terminal_currents=[{"strip": {"source": I, "drain": -I}} for I in (1.0, 2.5, 4.0)],
+            vortex_nPhi0=np.array([[1.0, 0.0], [-1.0, 2.0], [0.0, -2.0]]),
+        )
+    r = st.solve_many(model=model, applied_fields=fields, torch_device="cpu", **drive)
+    return [r.streams, r.current_densities, r.self_fields, r.applied_fields]
+
+
+#: The bootstrap's solves per call: one unit solution per terminal (the
+#: last terminal's is the centring direction), two solves each in a film
+#: with a hole.
+TERMINAL_SOLVES = 2 * 2
+
+
+def test_terminal_and_vortex_spans_open_once_per_driven_sweep(transport):
+    with _profiled():
+        _bias_sweep(transport["model"])
+    spans = tracing.snapshot()["spans"]
+    tree = _tree(spans)
+    assert tree[:4] == [
+        ("solve_many", None), ("sweep.inputs", "solve_many"), ("sweep.vortices", "solve_many"),
+        ("sweep.terminals", "solve_many"),
+    ]
+    assert [name for name, _ in tree].count("sweep.terminals") == 1
+    assert [name for name, _ in tree].count("sweep.vortices") == 1
+    terminals = next(s for s in spans if s.name == "sweep.terminals")
+    assert terminals.counts == {tracing.TERMINAL_SOLVES: TERMINAL_SOLVES}
+    assert tracing.snapshot()["counters"] == {tracing.TERMINAL_SOLVES: TERMINAL_SOLVES}
+
+
+def test_terminal_and_vortex_spans_are_absent_without_their_drives(transport):
+    with _profiled():
+        _bias_sweep(transport["model"], driven=False)
+    snap = tracing.snapshot()
+    names = {s.name for s in snap["spans"]}
+    assert "solve_many" in names and not names & {"sweep.terminals", "sweep.vortices"}
+    assert snap["counters"] == {}
+
+
+@pytest.mark.parametrize("driven", [True, False], ids=["driven", "fields"])
+def test_transport_results_are_bitwise_the_same_under_the_profiler(transport, driven):
+    plain = _bias_sweep(transport["model"], driven)
+    with _profiled():
+        traced = _bias_sweep(transport["model"], driven)
+    for a, b in zip(plain, traced):
+        for name in a:
+            assert a[name].dtype == b[name].dtype and np.array_equal(a[name], b[name])
+
+
+def test_the_bootstrap_copies_go_through_the_transfer_counters(transport, monkeypatch):
+    """``solve_from_boundary_stream`` moves its data through
+    ``tracing.to_host``/``to_device``: the counters see, per effective field,
+    the block's float64 values up and its float64 field down, and per solve
+    the right-hand side up and the solution down in the solve dtype."""
+    import importlib
+
+    # The module: ``solver.solve_film`` is the function once the package is imported.
+    solve_film = importlib.import_module("superscreen_tpu_torch.solver.solve_film")
+    model, device = transport["model"], transport["device"]
+    info, systems = model.film_info["strip"], model.terminal_systems["strip"]
+    g = np.zeros(len(device.meshes["strip"].sites))
+    g[info.boundary_indices] = np.linspace(-1.0, 1.0, len(info.boundary_indices))
+    moved = {"up": 0, "down": 0}
+    to_host, to_device = tracing.to_host, tracing.to_device
+
+    def host(t):
+        moved["down"] += t.numel() * t.element_size()
+        return to_host(t)
+
+    def card(value, device, dtype=None):
+        out = to_device(value, device, dtype)
+        moved["up"] += out.numel() * out.element_size()
+        return out
+
+    want = solve_film.solve_from_boundary_stream(device, info, systems, g)
+    monkeypatch.setattr(tracing, "to_host", host)
+    monkeypatch.setattr(tracing, "to_device", card)
+    got = solve_film.solve_from_boundary_stream(device, info, systems, g)
+    assert np.array_equal(got, want)
+    n = len(g)
+    size = info.weights.element_size()
+    blocks = [systems.boundary, *systems.holes.values(), systems.boundary]
+    solved = [systems.film_without_boundary, systems.film_without_boundary_or_holes]
+    assert moved["up"] == sum(8 * len(b.indices) for b in blocks) + sum(size * len(s.indices) for s in solved)
+    assert moved["down"] == 8 * n * len(blocks) + sum(size * len(s.indices) for s in solved)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -350,3 +475,65 @@ def test_transfer_counters_of_a_sweep_on_the_card(cuda):
     }
     assert got["counted"] == ["sweep.inputs", "sweep.to_host"]
     assert got["device_events"] and not set(got["device_events"]) & PROGRAM_SPANS
+
+
+def _profiled_transport_sweep_on_the_card():
+    """The driven sweep of the terminal strip on the card under a host and
+    device profile: the counters and the sizes they derive from (run by the
+    test below in a process of its own)."""
+    device = _terminal_strip()
+    vortices = [st.Vortex(x=1.2, y=0.4, film="strip"), st.Vortex(x=-0.5, y=-0.8, film="strip")]
+    model = st.factorize_model(device=device, current_units="uA", vortices=vortices, torch_device="cuda")
+    fields = [st.sources.ConstantField(b) for b in FIELDS]
+    drive = dict(
+        terminal_currents=[{"strip": {"source": I, "drain": -I}} for I in (1.0, 2.5, 4.0)],
+        vortex_nPhi0=np.array([[1.0, 0.0], [-1.0, 2.0], [0.0, -2.0]]),
+    )
+    st.solve_many(model=model, applied_fields=fields, torch_device="cuda", **drive)
+    with _profiled((ProfilerActivity.CPU, ProfilerActivity.CUDA)):
+        st.solve_many(model=model, applied_fields=fields, torch_device="cuda", **drive)
+    info, systems = model.film_info["strip"], model.terminal_systems["strip"]
+    return dict(
+        counters=tracing.snapshot()["counters"],
+        n=len(device.meshes["strip"].sites),
+        boundary=len(info.boundary_indices),
+        holes=[len(h.indices) for h in systems.holes.values()],
+        solved=[len(systems.film_without_boundary.indices), len(systems.film_without_boundary_or_holes.indices)],
+    )
+
+
+@pytest.mark.gpu
+def test_transfer_counters_of_a_transport_sweep_on_the_card(cuda):
+    """The copies of a driven sweep of the terminal strip against its
+    shapes: the inputs and results as a plain sweep's, the vortex
+    amplitudes up, and for each of the two unit bootstrap solutions the
+    copies of ``solve_from_boundary_stream`` (float64 block values up and
+    fields down, the right-hand sides up and the solutions down) and of
+    its boundary field (the geometry up, the field down), then the
+    per-point offsets up."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    code = (
+        f"import json, sys; sys.path[:0] = [{str(here.parent)!r}, {str(here)!r}]; "
+        "import test_torch_tracing as t; print(json.dumps(t._profiled_transport_sweep_on_the_card()))"
+    )
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    B, size, n, nb = len(FIELDS), 4, got["n"], got["boundary"]
+    holes, solved = got["holes"], got["solved"]
+    units = 2
+    bootstrap_up = 8 * (2 * nb + sum(holes)) + size * sum(solved)
+    bootstrap_down = 8 * n * (2 + len(holes)) + size * sum(solved)
+    boundary_field_up = size * (2 * n + 2 * nb + nb + 2 * nb + nb)
+    assert got["counters"] == {
+        "h2d_bytes": size * B * (n + len(holes)) + size * B * 2
+        + units * (bootstrap_up + boundary_field_up) + 2 * size * B * n,
+        "d2h_bytes": 6 * B * n * size + units * (bootstrap_down + size * n),
+        "host_syncs": 5 + units * (2 + len(holes) + 2 + 1),
+        "terminal_solves": units * 2,
+    }
