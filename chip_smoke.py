@@ -21,8 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    MAX_DENSE_KERNEL_SIZE, factorized (materialized interior systems; above
    LU_MAX_N_TPU = 12,288 unknowns on the card every film of phases 2 to 17
    takes SUPERSCREEN_TPU_LARGE_FACTOR's default route, the explicit
-   inverse "inv", but for phase 8's films, whose Lambda is inhomogeneous
-   and which keep LU) and solved with five coupling rounds in float32.  No film may hold a
+   inverse "inv"; phase 8's films, whose Lambda is inhomogeneous, are
+   inverted from their LU, "inv" without weights) and solved with five coupling rounds in float32.  No film may hold a
    dense kernel, the q_apply kernel must have run at least three times per
    film, and every final relative residual must be at most 1e-4.
 5. The same stack with SUPERSCREEN_TPU_LARGE_FACTOR=cg (matrix-free CG):
@@ -60,7 +60,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    1e-2 of the gross current crossing the section; float32 on the card against
    float64 on the CPU on a coarse copy within 1e-4; with
    SUPERSCREEN_TPU_LARGE_FACTOR=cg the ring takes the BiCGStab route, its
-   streams are within 1e-4 of LU's, and a second factorization and sweep
+   streams are within 1e-4 of its inverse's from LU, and a second factorization and sweep
    take the same number of iterations and give the same bits.  The
    in-film self-field of the strip (biot_savart_batch with the triangle
    centroids as sources) is held against its plain version and timed.
@@ -1549,9 +1549,12 @@ def phase_transport(torch, st, kernels, cuda_kernels):
     )
     print(f"phase8 launches: factorize {factor_launches}, sweep {launches}")
     strip, ring = model.film_data["strip"], model.film_data["ring"]
-    _require(strip.terminal and strip.Qw is None and strip.fac_kind == "lu", "strip route")
+    # Inhomogeneous Lambda above LU_MAX_N_TPU: inverted from the LU.
+    _require(strip.terminal and strip.Qw is None and strip.fac_kind == "inv", "strip route")
+    _require(strip.factors[2] is None, "strip inverted from its LU")
     _require(model.film_info["strip"].lambda_info.inhomogeneous, "strip Lambda")
-    _require(ring.Qw is None and ring.fac_kind == "lu" and not ring.terminal, "ring route")
+    _require(ring.Qw is None and ring.fac_kind == "inv" and not ring.terminal, "ring route")
+    _require(ring.factors[2] is None, "ring inverted from its LU")
     _require(model.film_info["ring"].lambda_info.inhomogeneous, "ring Lambda")
     _require(strip.vortex_cols.shape == (len(strip.interior), 2), "vortex columns")
     # Per sweep: two coupling passes per round, the strip's in-film
@@ -1597,7 +1600,7 @@ def _transport_comparisons(
 ):
     """Phase 8's accuracy comparisons, with the inner rounds refined: the
     coarse copy in float32 on the card against float64 on the CPU, and the
-    ring by matrix-free BiCGStab against LU."""
+    ring by matrix-free BiCGStab against its inverse from LU."""
     from superscreen_tpu_torch.ops import linalg
 
     result, _ = _sweep(torch, st, model=model, **sweep_kwargs)
@@ -1642,7 +1645,7 @@ def _transport_comparisons(
     del again
     _require(cg_model.film_data["ring"].fac_kind == "bicgstab", "ring not on the BiCGStab route")
     _require(cg_model.film_data["ring"].A is None, "ring system materialized")
-    _require(cg_model.film_data["strip"].fac_kind == "lu", "terminal strip must keep its LU")
+    _require(cg_model.film_data["strip"].fac_kind == "inv", "terminal strip must keep its inverse")
     # Two matvecs per BiCGStab iteration.
     _require(cg_launches["q_apply"] >= 2 * stats["iterations"], cg_launches)
     err = _sweep_stream_error(cg_result, result)
@@ -1650,7 +1653,7 @@ def _transport_comparisons(
         f"phase8 BiCGStab ring: {stats['solves']} solves, {stats['iterations']} iterations, "
         f"largest final recurrence residual {stats['max_residual']:.3e}, cold sweep "
         f"{cg_s:.3f} s, launches {cg_launches}; max relative stream difference to "
-        f"LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})"
+        f"the inverse from LU {err:.3e} (limit {CG_STREAM_REL_MAX:.0e})"
     )
     _require(err <= CG_STREAM_REL_MAX, f"BiCGStab stream difference {err:.3e}")
 

@@ -2,13 +2,17 @@
 
 Counterpart of the factorization and solve paths of
 ``superscreen_tpu/ops/linalg.py``.  :func:`factor_system` factorizes a film
-system ``A`` (solves are against ``-A``) by the JAX package's rule: a
-system on the CPU, one of at most :data:`LU_MAX_N_TPU` unknowns, or one
-without the column scaling ``w`` that makes ``P = A diag(1/w)`` symmetric
-positive definite is LU-factorized with :func:`torch.linalg.lu_factor`; a
-larger one on the card takes the route of ``SUPERSCREEN_TPU_LARGE_FACTOR``
-(:func:`large_factor_method`), each on ``P_s``, the symmetric part of
-``P``:
+system ``A`` (solves are against ``-A``): a system on the CPU or of at most
+:data:`LU_MAX_N_TPU` unknowns is LU-factorized with
+:func:`torch.linalg.lu_factor`, as in the JAX package.  A larger one on
+the card without the column scaling ``w`` that makes ``P = A diag(1/w)``
+symmetric positive definite (a film with an inhomogeneous Lambda) is
+inverted from its LU, ``("inv", M, None)`` with ``M = (-A)^-1``
+(:func:`_lu_explicit_inverse`), where the JAX package inverts ``P_s``, the
+symmetric part of ``P``, which leaves ``||I + M A||`` ~0.3 on such a
+film.  A larger one with ``w`` takes the route of
+``SUPERSCREEN_TPU_LARGE_FACTOR`` (:func:`large_factor_method`), each on
+``P_s``:
 
 - ``"inv"`` (the default): Cholesky, the triangular inverse and the
   product ``P_s^-1 = L^-T L^-1``, in place in one ``(n, n)`` buffer beside
@@ -23,7 +27,8 @@ A film past the single-device dense ceiling, kept dense because a
 factorization mesh is installed (:mod:`superscreen_tpu_torch.parallel`),
 has a row-sharded system (:class:`.rows.RowSharded`) and is inverted over
 the mesh: ``("inv", M, w)`` with ``M`` row-sharded.  An installed mesh
-also takes every large film on the card, as in the JAX package.
+also takes every large film on the card that has ``w``, as in the JAX
+package.
 
 Solves use safeguarded fixed-count iterative refinement so that each
 returned column is the iterate with the smallest residual; :func:`lu_solve`
@@ -132,12 +137,14 @@ def _cholesky_(X: torch.Tensor, block: int) -> torch.Tensor:
     return X.tril_()
 
 
-def _tril_inverse_(X: torch.Tensor, block: int) -> torch.Tensor:
+def _tril_inverse_(X: torch.Tensor, block: int, packed: bool = False) -> torch.Tensor:
     """The inverse of the lower-triangular ``X`` (zeros above the
     diagonal), in place, from the last block column to the first: with the
     trailing block ``L22^-1`` already in place, the block column below the
     diagonal becomes ``-L22^-1 L21 L11^-1``, its product formed one block
-    row at a time over the lower triangle only."""
+    row at a time over the lower triangle only.  With ``packed`` the strict
+    upper triangle holds another factor (the other triangle of a packed
+    LU), which is neither read nor written."""
     n = X.shape[0]
     for j in reversed(range(0, n, block)):
         j1 = min(j + block, n)
@@ -147,9 +154,17 @@ def _tril_inverse_(X: torch.Tensor, block: int) -> torch.Tensor:
             T = torch.empty((n - j1, j1 - j), dtype=X.dtype, device=X.device)
             for r in range(j1, n, block):
                 r1 = min(r + block, n)
-                torch.mm(X[r:r1, j1:r1], X[j1:r1, j:j1], out=T[r - j1 : r1 - j1])
+                T_r = T[r - j1 : r1 - j1]
+                if packed:
+                    torch.mm(X[r:r1, r:r1].tril(), X[r:r1, j:j1], out=T_r)
+                    if r > j1:
+                        T_r.addmm_(X[r:r1, j1:r], X[j1:r, j:j1])
+                else:
+                    torch.mm(X[r:r1, j1:r1], X[j1:r1, j:j1], out=T_r)
             X[j1:, j:j1] = (T @ D_inv).neg_()
             del T
+        if packed:
+            D_inv.add_(X[j:j1, j:j1].triu(1))
         X[j:j1, j:j1] = D_inv
     return X
 
@@ -183,17 +198,71 @@ def _chol_explicit_inverse(A: torch.Tensor, w: torch.Tensor, block: int) -> torc
     return X.div_(w[:, None]).neg_()
 
 
+def _transpose_(S: torch.Tensor, block: int) -> torch.Tensor:
+    """The square ``S`` transposed in place, one pair of ``block``-sized
+    blocks at a time."""
+    n = S.shape[0]
+    for i in range(0, n, block):
+        i1 = min(i + block, n)
+        S[i:i1, i:i1] = S[i:i1, i:i1].mT.clone()
+        for c in range(i1, n, block):
+            c1 = min(c + block, n)
+            upper = S[i:i1, c:c1].clone()
+            S[i:i1, c:c1] = S[c:c1, i:i1].mT
+            S[c:c1, i:i1] = upper.mT
+    return S
+
+
+def _lu_explicit_inverse(A: torch.Tensor, block: int) -> torch.Tensor:
+    """The solution operator ``M = (-A)^-1`` of a system without the
+    symmetric scaling (an inhomogeneous Lambda), from the partial-pivot LU
+    ``A[perm] = L U``, in place in the LU's one new ``(n, n)`` buffer (the
+    LAPACK ``getri`` order): ``U`` inverted in place through the lower
+    triangle of its transposed view (:func:`_tril_inverse_`, ``packed``),
+    then ``Z L = U^-1`` solved for ``Z = U^-1 L^-1`` one block column at a
+    time from the right, each block column of ``L`` first moved to an
+    ``n x block`` panel; the column-major buffer transposed in place to
+    rows, and ``M = -Z[:, perm^-1]`` permuted and negated one block of rows
+    at a time.  Beside ``A`` the route holds that buffer and panels, within
+    the three matrices that the materialized ceiling allows
+    (``solver.solve_film.LU_PEAK_BUFFERS``)."""
+    F, piv = torch.linalg.lu_factor(A)
+    inv_perm = torch.argsort(_pivots_to_permutation(piv))
+    n = F.shape[0]
+    _tril_inverse_(F.mT, block, packed=True)
+    for j in reversed(range(0, n, block)):
+        j1 = min(j + block, n)
+        W = F[j:, j:j1].tril(-1)
+        F[j:j1, j:j1] = F[j:j1, j:j1].triu()
+        if j1 < n:
+            F[j1:, j:j1] = 0
+            F[:, j:j1].addmm_(F[:, j1:], W[j1 - j :], alpha=-1)
+        F[:, j:j1] = torch.linalg.solve_triangular(
+            W[: j1 - j], F[:, j:j1], upper=False, left=False, unitriangular=True
+        )
+        del W
+    # lu_factor's buffer is column-major: transposed in place, its
+    # transposed view holds Z row by row.
+    Z = _transpose_(F.mT, block)
+    for i in range(0, n, block):
+        i1 = min(i + block, n)
+        Z[i:i1] = Z[i:i1].index_select(1, inv_perm).neg_()
+    return Z
+
+
 @tracing.traced("factorize.factor")
 def factor_system(A, weights_col=None, force_sharded: bool = False):
     """Factorizes the film system ``A`` (solves are against ``-A``).
 
     LU factors ``(LU, perm)`` of ``-A`` (the packed ``LU`` and the row
-    permutation with ``(-A)[perm] = L U``) for a system on the CPU, of at
-    most :data:`LU_MAX_N_TPU` unknowns, or without ``weights_col``: the
-    column scaling ``w`` that makes ``A / w`` symmetric positive definite,
-    which a film with an inhomogeneous Lambda does not have (its
-    ``(grad Lambda) . grad`` term is not symmetric).  A larger system on
-    the card with ``weights_col`` is inverted over an installed
+    permutation with ``(-A)[perm] = L U``) for a system on the CPU or of at
+    most :data:`LU_MAX_N_TPU` unknowns.  A larger system on the card
+    without ``weights_col``, the column scaling ``w`` that makes ``A / w``
+    symmetric positive definite, which a film with an inhomogeneous Lambda
+    does not have (its ``(grad Lambda) . grad`` term is not symmetric), is
+    inverted from its LU: ``("inv", M, None)`` with ``M = (-A)^-1``
+    (:func:`_lu_explicit_inverse`).  A larger system on the card with
+    ``weights_col`` is inverted over an installed
     factorization mesh (:func:`parallel.sharding.sharded_inverse_of_system`,
     ``("inv", M, w)`` with ``M`` row-sharded), else factorized by the route
     of :func:`large_factor_method`: ``("inv", M, w)`` with the solution
@@ -221,9 +290,11 @@ def factor_system(A, weights_col=None, force_sharded: bool = False):
                 "(parallel.set_factorization_mesh)."
             )
         return ("inv", sharding.sharded_inverse_of_system(mesh, A, weights_col), weights_col)
-    if weights_col is None or _on_cpu(A) or A.shape[0] <= LU_MAX_N_TPU:
+    if _on_cpu(A) or A.shape[0] <= LU_MAX_N_TPU:
         lu, piv = torch.linalg.lu_factor(-A)
         return lu, _pivots_to_permutation(piv)
+    if weights_col is None:
+        return ("inv", _lu_explicit_inverse(A, FACTOR_BLOCK), None)
     w = weights_col
     mesh = sharding.factorization_mesh()
     if mesh is not None and mesh.shape["model"] > 1:
@@ -255,10 +326,12 @@ def lu_solve(lu_piv, h: torch.Tensor) -> torch.Tensor:
 
     LU factors ``(LU, perm)``: two triangular solves read the triangles of
     the packed ``LU`` in place; ``torch.linalg.lu_solve`` would first
-    unpack ``L`` and ``U`` into new ``(n, n)`` buffers on every call.
-    ``("inv", M, w)``: the product ``M h`` (row by row for a row-sharded
-    ``M``, gathered on ``h``'s device).  ``("chol", L, w)``: ``A = P
-    diag(w)`` with ``P = L L^T``, so ``x = -cho_solve(L, h) / w``.
+    unpack ``L`` and ``U`` into new ``(n, n)`` buffers on every call.  Each
+    such solve counts in ``tracing.TRIANGULAR_SOLVES``.
+    ``("inv", M, w)`` (``w`` None for an inverse from LU): the product
+    ``M h`` (row by row for a row-sharded ``M``, gathered on ``h``'s
+    device).  ``("chol", L, w)``: ``A = P diag(w)`` with ``P = L L^T``, so
+    ``x = -cho_solve(L, h) / w``.
     """
     kind = factor_kind(lu_piv)
     if kind == "inv":
@@ -270,6 +343,7 @@ def lu_solve(lu_piv, h: torch.Tensor) -> torch.Tensor:
         x = torch.cholesky_solve(rhs, L).div_(w[:, None]).neg_()
     else:
         lu, perm = lu_piv
+        tracing.count(tracing.TRIANGULAR_SOLVES)
         y = torch.linalg.solve_triangular(lu, rhs[perm], upper=False, unitriangular=True)
         x = torch.linalg.solve_triangular(lu, y, upper=True)
     return x[:, 0] if squeeze else x

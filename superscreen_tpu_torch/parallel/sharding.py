@@ -283,7 +283,7 @@ def _replica(data, slots: Sequence[torch.device]):
             kwargs[f.name] = _row_placed(value, slots)
         elif f.name == "factors" and data.fac_kind == "inv":
             _, M, w = value
-            kwargs[f.name] = ("inv", _row_placed(M, slots), w.to(slots[0]))
+            kwargs[f.name] = ("inv", _row_placed(M, slots), None if w is None else w.to(slots[0]))
         else:
             kwargs[f.name] = _replicate(value, slots[0])
     return replace(data, **kwargs)

@@ -7,11 +7,12 @@ Counterpart of ``superscreen_tpu/solver/solve_film.py``: each film's system
 the CPU and up to ``LU_MAX_N_TPU`` unknowns, above that on the card the
 route of ``SUPERSCREEN_TPU_LARGE_FACTOR`` (the explicit inverse by
 default), as the JAX package factorizes on its accelerator.  A film with
-an inhomogeneous Lambda is LU-factorized at any size: its system has no
-symmetric positive definite scaling, and the routes' symmetric part
-misses the residual bar (``tests/test_torch_factor_routes.py``).  Each
-hole gets the all-rows, hole-columns system whose row sums give the
-effective field of a unit circulating current.
+an inhomogeneous Lambda has no symmetric positive definite scaling, and
+the routes' symmetric part misses the residual bar
+(``tests/test_torch_factor_routes.py``): on the card above
+``LU_MAX_N_TPU`` it is inverted from its LU instead, elsewhere
+LU-factorized.  Each hole gets the all-rows, hole-columns system whose row
+sums give the effective field of a unit circulating current.
 
 A film on the low-memory path (``FilmInfo.dense_kernel`` False) never
 builds the full ``(n, n)`` kernel.  Its interior system is assembled from
@@ -79,10 +80,10 @@ __all__ = [
 #: ``(ni, ni)`` buffers: for LU ``A``, the transient ``-A`` that
 #: :func:`ops.linalg.factor_system` hands to ``lu_factor`` and the packed
 #: ``LU`` (12.0 bytes per ni^2 in float32 as measured on an H100); for the
-#: ``"inv"`` and ``"chol"`` routes fewer, ``A`` and the one buffer the
-#: factor is built in, plus panels (2.25 and 2.12 on an H100 at ni =
-#: 16,768).  The ``"schur"`` and ``"schulz"`` routes hold
-#: :data:`INVERSE_PEAK_BUFFERS`.  67.5 GB of an 80 GB card, which leaves
+#: ``"inv"`` and ``"chol"`` routes and the inverse from LU fewer, ``A``
+#: and the one buffer the factor is built in, plus panels (2.25 and 2.12
+#: on an H100 at ni = 16,768 for ``"inv"`` and ``"chol"``).  The
+#: ``"schur"`` and ``"schulz"`` routes hold :data:`INVERSE_PEAK_BUFFERS`.  67.5 GB of an 80 GB card, which leaves
 #: ~12 GB for the solver's workspace and the model's other tensors, gives
 #: ni = 75,000 in float32 and 53,033 in float64 at three buffers.  The JAX
 #: package's default, 65,000, was sized for a 16 GB TPU with another
@@ -118,7 +119,8 @@ class LinearSystem:
         lu_piv: The factors of ``-A`` (see
             :func:`superscreen_tpu_torch.ops.linalg.factor_system`): LU
             ``(LU, perm)``, the explicit inverse ``("inv", M, w)`` (``A``
-            and ``M`` row-sharded for a film factorized over a mesh), or
+            and ``M`` row-sharded for a film factorized over a mesh; ``w``
+            None for a film inverted from its LU), or
             the Cholesky factor ``("chol", L, w)``; or None.
         cg_op: The matrix-free operator pieces of a film solved by CG (see
             :func:`superscreen_tpu_torch.ops.linalg.brandt_matvec`), or None.
@@ -133,7 +135,8 @@ class LinearSystem:
         """Writes the system into ``h5group`` (an ``h5py.Group``) in the JAX
         package's layout: ``A``, ``indices``, and the factors as ``lu`` and
         0-based LAPACK ``piv`` (the JAX package's convention), ``inv_M``
-        and ``inv_w`` (a row-sharded ``M`` gathered), or ``chol_L`` and
+        and ``inv_w`` (a row-sharded ``M`` gathered; no ``inv_w`` for an
+        inverse from LU, which has no scaling), or ``chol_L`` and
         ``chol_w``; the matrix-free pieces of a film solved by CG or
         BiCGStab go to a ``matrix_free`` group of this package's own.  The
         tensors come to the host here."""
@@ -145,7 +148,8 @@ class LinearSystem:
             _, factor, w = self.lu_piv
             name = "inv_M" if kind == "inv" else "chol_L"
             h5group[name] = np.asarray(factor.cpu() if torch.is_tensor(factor) else factor)
-            h5group[f"{kind}_w"] = w.cpu().numpy()
+            if w is not None:
+                h5group[f"{kind}_w"] = w.cpu().numpy()
         elif kind == "lu":
             lu, perm = self.lu_piv
             h5group["lu"] = lu.cpu().numpy()
@@ -198,7 +202,8 @@ class LinearSystem:
             if key in h5group:
                 A = A[:ni, :ni]
                 factor = np.array(h5group[key])[:ni, :ni]
-                lu_piv = (tag, tensor(factor), tensor(np.array(h5group[f"{tag}_w"])[:ni]))
+                w = h5group.get(f"{tag}_w")
+                lu_piv = (tag, tensor(factor), None if w is None else tensor(np.array(w)[:ni]))
         cg_op = None
         if "matrix_free" in h5group:
             grp = h5group["matrix_free"]
@@ -497,7 +502,8 @@ def factorize_linear_systems(
     terminals.
 
     Each film system is factorized by :func:`ops.linalg.factor_system`
-    with its interior weights, or without them (LU) where the film's
+    with its interior weights, or without them (LU, or on the card above
+    ``ops.linalg.LU_MAX_N_TPU`` the inverse from LU) where the film's
     Lambda is inhomogeneous.  Each dense film's Laplacian (and gradient
     pair) is released once its systems are built.  A low-memory film is
     factorized from its materialized interior system, or, with
@@ -518,8 +524,8 @@ def factorize_linear_systems(
     def factor(A, info, ix):
         if assemble_only:
             return None
-        # The routes need the scaling that makes A / w symmetric positive
-        # definite, which an inhomogeneous Lambda's term breaks.
+        # The symmetric routes need the scaling that makes A / w symmetric
+        # positive definite, which an inhomogeneous Lambda's term breaks.
         w_col = None
         if not info.lambda_info.inhomogeneous:
             w_col = info.weights[torch.as_tensor(ix, device=info.weights.device)]

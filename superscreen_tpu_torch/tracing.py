@@ -28,8 +28,9 @@ its ring: one when a ring is set, and one when
 :attr:`~superscreen_tpu_torch.Polygon.is_valid` finds the ring's bytes
 changed since it last passed.  :data:`TERMINAL_SOLVES` counts the solves
 of a terminal film's transport bootstrap
-(:func:`~superscreen_tpu_torch.solver.solve_film.solve_from_boundary_stream`).
-Each increment is also attributed to the innermost open span
+(:func:`~superscreen_tpu_torch.solver.solve_film.solve_from_boundary_stream`),
+and :data:`TRIANGULAR_SOLVES` the solves that run on packed LU factors
+(:func:`~superscreen_tpu_torch.ops.linalg.lu_solve`).  Each increment is also attributed to the innermost open span
 (:attr:`Span.counts`).
 
 With no profiler running, a span or a counter costs one boolean test: it
@@ -61,6 +62,7 @@ __all__ = [
     "POLYGON_CHECKS",
     "Span",
     "TERMINAL_SOLVES",
+    "TRIANGULAR_SOLVES",
     "count",
     "reset",
     "snapshot",
@@ -83,6 +85,10 @@ POLYGON_CHECKS = "polygon_checks"
 #: boundary fixed, and one more with the holes pinned where the film has
 #: holes.
 TERMINAL_SOLVES = "terminal_solves"
+#: Solves on packed LU factors (two triangular solves each,
+#: ``ops.linalg.lu_solve``): a film system on the CPU or of at most
+#: ``ops.linalg.LU_MAX_N_TPU`` unknowns.
+TRIANGULAR_SOLVES = "triangular_solves"
 
 @dataclass(eq=False)
 class Span:

@@ -1214,7 +1214,7 @@ def test_factor_routes_on_the_card_match_lu(cuda, monkeypatch, dtype, route):
 def test_factor_system_takes_the_default_route_on_the_card_only(cuda, monkeypatch):
     """Above LU_MAX_N_TPU a system on the card takes "inv" by default and
     the same system on the CPU takes LU; without weights (an inhomogeneous
-    Lambda) the card takes LU too."""
+    Lambda) the card inverts it from its LU, and the CPU takes LU."""
     from superscreen_tpu_torch.ops import linalg
 
     monkeypatch.delenv("SUPERSCREEN_TPU_LARGE_FACTOR", raising=False)
@@ -1222,4 +1222,48 @@ def test_factor_system_takes_the_default_route_on_the_card_only(cuda, monkeypatc
     A, w, _ = _spd_system(1100, torch.float32, cuda)
     assert linalg.factor_kind(linalg.factor_system(A, w)) == "inv"
     assert linalg.factor_kind(linalg.factor_system(A.cpu(), w.cpu())) == "lu"
-    assert linalg.factor_kind(linalg.factor_system(A)) == "lu"
+    kind, M, none = linalg.factor_system(A)
+    assert kind == "inv" and none is None and M.is_cuda and M.is_contiguous()
+    assert linalg.factor_kind(linalg.factor_system(A.cpu())) == "lu"
+
+
+def test_inhomogeneous_film_inverted_from_lu_on_the_card_matches_lu(cuda, monkeypatch):
+    """A film of ~4,000 unknowns with a weak spot in Lambda (no symmetric
+    scaling) at float32 on the card, inverted from its LU above
+    LU_MAX_N_TPU: its solves after two refinement steps against the LU
+    route's, and a bias sweep through each route."""
+    from superscreen_tpu_torch.ops import linalg
+
+    def weak_spot(x, y, sigma=0.7):
+        return 1.0 + 0.5 * np.exp(-(x**2 + (y - 0.3) ** 2) / (2 * sigma**2))
+
+    device = st.Device(
+        "strip", layers=[st.Layer("base", Lambda=st.Parameter(weak_spot))],
+        films=[st.Polygon("strip", layer="base", points=st.geometry.box(4, 2, points=200))],
+        solve_dtype="float32",
+        terminals={"strip": [
+            st.Polygon("source", points=st.geometry.box(0.2, 2, center=(-2, 0))),
+            st.Polygon("drain", points=st.geometry.box(0.2, 2, center=(2, 0))),
+        ]},
+    )
+    device.make_mesh(min_points=4400)
+    models = {}
+    for route, limit in (("lu", linalg.LU_MAX_N_TPU), ("inv", 1000)):
+        monkeypatch.setattr(linalg, "LU_MAX_N_TPU", limit)
+        models[route] = st.factorize_model(device=device, current_units="uA", torch_device="cuda")
+        assert models[route].film_data["strip"].fac_kind == route
+    system = models["inv"].film_systems["strip"]
+    n = len(system.indices)
+    assert 3500 < n < 5000 and system.lu_piv[2] is None and system.lu_piv[1].shape == (n, n)
+    h = torch.as_tensor(np.random.default_rng(2).standard_normal((n, 3)), dtype=torch.float32, device=cuda)
+    x = linalg.lu_solve_refined(system.A, system.lu_piv, h)
+    ref = linalg.lu_solve_refined(system.A, models["lu"].film_systems["strip"].lu_piv, h)
+    torch.cuda.synchronize()
+    assert _rel_err(x, ref) <= 1e-5
+    kwargs = dict(
+        applied_fields=[st.sources.ConstantField(0.05)] * 4,
+        terminal_currents=[{"strip": {"source": 1.0 + b, "drain": -1.0 - b}} for b in range(4)],
+        torch_device="cuda",
+    )
+    streams = {route: st.solve_many(model=model, **kwargs).streams["strip"] for route, model in models.items()}
+    assert np.abs(streams["inv"] - streams["lu"]).max() <= 1e-5 * np.abs(streams["lu"]).max()

@@ -232,16 +232,32 @@ def test_large_factor_chol_gives_cholesky_factors(ref, on_the_card):
             assert torch.equal(w, model.film_info[name].weights[ix])
 
 
+def _is_lu(factors, n):
+    lu, perm = factors
+    return lu.shape == (n, n) and sorted(perm.tolist()) == list(range(n))
+
+
 def test_a_cpu_system_takes_lu_above_the_threshold(system, monkeypatch):
-    """On the CPU every system takes LU, as on the JAX package's CPU
-    backend; on the card a system without weights (an inhomogeneous
-    Lambda) takes LU too."""
-    monkeypatch.setattr(linalg, "LU_MAX_N_TPU", 0)
+    """On the CPU every system takes LU, with weights or without, as on the
+    JAX package's CPU backend; on the card a system of at most
+    ``LU_MAX_N_TPU`` unknowns takes LU too, and a larger one without
+    weights (an inhomogeneous Lambda) the inverse from its LU."""
     A, w = torch.as_tensor(system["A"]), torch.as_tensor(system["w"])
-    assert linalg.factor_kind(linalg.factor_system(A, w)) == "lu"
+    n = A.shape[0]
+    monkeypatch.setattr(linalg, "LU_MAX_N_TPU", 0)
+    for weights in (w, None):
+        factors = linalg.factor_system(A, weights)
+        assert linalg.factor_kind(factors) == "lu" and _is_lu(factors, n)
     monkeypatch.setattr(linalg, "_on_cpu", lambda A: False)
-    assert linalg.factor_kind(linalg.factor_system(A)) == "lu"
-    assert linalg.factor_kind(linalg.factor_system(A, w)) == "inv"
+    for limit in (n, n + 1):
+        monkeypatch.setattr(linalg, "LU_MAX_N_TPU", limit)
+        for weights in (w, None):
+            factors = linalg.factor_system(A, weights)
+            assert linalg.factor_kind(factors) == "lu" and _is_lu(factors, n)
+    monkeypatch.setattr(linalg, "LU_MAX_N_TPU", n - 1)
+    assert linalg.factor_system(A, w)[0] == "inv"
+    kind, M, none = linalg.factor_system(A)
+    assert kind == "inv" and none is None and M.is_contiguous()
 
 
 class _LiveBytes(TorchDispatchMode):
@@ -271,31 +287,37 @@ class _LiveBytes(TorchDispatchMode):
         return out
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("route", ROUTES + ["lu_inverse"])
 def test_route_memory_within_the_materialized_ceiling(on_the_card, route):
     """Every route holds at most ``LU_PEAK_BUFFERS`` ``(n, n)`` matrices at
     once, the system ``A`` among them, plus panels: every storage its ops
     make is tracked while it lives, with 8-row blocks and panels.  The
-    ``"inv"`` and ``"chol"`` routes hold one matrix beside ``A``."""
+    ``"inv"`` and ``"chol"`` routes and the inverse from LU of a system
+    without weights (``"lu_inverse"``, with a non-symmetric ``A``) hold one
+    matrix beside ``A``."""
     n, width = 256, 8
     on_the_card.setattr(linalg, "FACTOR_BLOCK", width)
     on_the_card.setattr(rows, "PANEL", width)
     on_the_card.setattr(rows, "SCHUR_LEAF", width)
     on_the_card.setattr(rows, "SCHULZ_ITERS", 2)
-    on_the_card.setenv("SUPERSCREEN_TPU_LARGE_FACTOR", route)
+    if route != "lu_inverse":
+        on_the_card.setenv("SUPERSCREEN_TPU_LARGE_FACTOR", route)
     rng = np.random.default_rng(3)
     G = rng.normal(size=(n, n))
     w = torch.as_tensor(0.5 + rng.random(n))
     A = torch.as_tensor((G @ G.T / n + 3.0 * np.eye(n)) * w.numpy()[None, :])
-    with _LiveBytes(ignore=[A, w]) as tracker:
+    if route == "lu_inverse":
+        A = A + torch.as_tensor(rng.normal(size=(n, n)) / n)
+        w = None
+    with _LiveBytes(ignore=[A] if w is None else [A, w]) as tracker:
         factors = linalg.factor_system(A, w)
-    if route in ("inv", "chol", "schur", "cg"):
+    if route in ("inv", "chol", "schur", "cg", "lu_inverse"):
         x = linalg.lu_solve(factors, torch.ones(n, dtype=A.dtype))
         assert _rel(-(A @ x), np.ones(n)) < 1e-10
     matrix = n * n * 8
     panels = 6 * n * width * 8
     assert panels <= matrix // 5
-    beside_A = 1 if route in ("inv", "chol") else solve_film.LU_PEAK_BUFFERS - 1
+    beside_A = 1 if route in ("inv", "chol", "lu_inverse") else solve_film.LU_PEAK_BUFFERS - 1
     assert tracker.peak <= beside_A * matrix + panels, tracker.peak / matrix
     assert tracker.peak > (beside_A - 1) * matrix + 0.9 * matrix  # the tracker sees the factor
 
@@ -454,10 +476,124 @@ def test_landscape_diagonal_of_route_films_matches_jax(ref, on_the_card, route):
     assert _rel(diag, ref_diag) <= FACTOR_TOL
 
 
-def _inhomogeneous_film_system():
+@pytest.mark.parametrize("matrix", ["random", "strip"])
+@pytest.mark.parametrize("fit", ["divides", "ragged"])
+def test_inverse_from_lu_at_any_block(inhomogeneous, matrix, fit):
+    """The in-place inverse from the partial-pivot LU equals
+    ``numpy.linalg.inv(-A)`` at a block that divides ``n`` and one that
+    does not: on a random non-symmetric matrix whose LU swaps rows, and on
+    the inhomogeneous strip's system (diagonally dominant: no swaps).  The
+    operator is returned row-major,
+    in the LU's buffer."""
+    if matrix == "random":
+        A = np.random.default_rng(5).normal(size=(120, 120))
+    else:
+        A = inhomogeneous[1]
+    n = A.shape[0]
+    if matrix == "random":
+        _, piv = torch.linalg.lu_factor(torch.as_tensor(A))
+        assert bool((piv - 1 != torch.arange(n)).any())
+    # The strip's n is prime: the block that divides it is n itself.
+    block = next(b for b in range(8, n + 1) if (n % b == 0) == (fit == "divides"))
+    M = linalg._lu_explicit_inverse(torch.as_tensor(A), block)
+    assert M.is_contiguous() and M.shape == (n, n)
+    assert _rel(M, np.linalg.inv(-A)) <= FACTOR_TOL
+
+
+def _transport_device(dtype="float64"):
+    """A coarse terminal strip with a hole and a weak spot in Lambda
+    (``chip_smoke.py`` phase 8's shape) under a homogeneous disk."""
+
+    def weak_spot(x, y, x0=1.0, y0=0.5, sigma=1.0, depth=0.5):
+        return 1.0 + depth * np.exp(-((x - x0) ** 2 + (y - y0) ** 2) / (2 * sigma**2))
+
+    width, height, h = 6.0, 3.0, 0.4
+    terminals = [
+        st.Polygon(name, points=st.geometry.box(h / 4, height, center=(x, 0)))
+        for name, x in (("source", -width / 2), ("drain", width / 2))
+    ]
+    device = st.Device(
+        "terminal_strip",
+        layers=[st.Layer("base", Lambda=st.Parameter(weak_spot), z0=0), st.Layer("top", Lambda=1, z0=1)],
+        films=[
+            st.Polygon("strip", layer="base", points=st.geometry.box(width, height, points=45)),
+            st.Polygon("disk", layer="top", points=st.geometry.circle(1.2, points=30, center=(1.5, 0))),
+        ],
+        holes=[st.Polygon("strip_hole", layer="base", points=st.geometry.circle(0.6, points=10, center=(-1.5, 0)))],
+        terminals={"strip": terminals}, solve_dtype=dtype,
+    )
+    device.make_mesh(min_points=250)
+    return device
+
+
+def _transport_model(device):
+    vortices = [st.Vortex(x=1.2, y=0.4, film="strip"), st.Vortex(x=-0.5, y=-0.8, film="strip")]
+    return st.factorize_model(device=device, current_units="uA", vortices=vortices, torch_device="cpu")
+
+
+def _transport_sweep(model):
+    """A driven three-point sweep: bias and vortex amplitudes per point,
+    two coupling rounds."""
+    r = st.solve_many(
+        model=model, applied_fields=[st.sources.ConstantField(b) for b in (0.1, 0.4, 0.7)],
+        terminal_currents=[{"strip": {"source": I, "drain": -I}} for I in (1.0, 2.5, 4.0)],
+        vortex_nPhi0=np.array([[1.0, 0.0], [-1.0, 2.0], [0.0, -2.0]]), iterations=2, coupling="exact",
+        torch_device="cpu",
+    )
+    return r.streams
+
+
+def _inverted_from_lu(model):
+    """The strip's film and bootstrap systems inverted from their LU, the
+    disk on the Cholesky route."""
+    strip = model.terminal_systems["strip"]
+    for system in (model.film_systems["strip"], strip.film_without_boundary):
+        assert system.lu_piv[0] == "inv" and system.lu_piv[2] is None
+    assert model.film_data["strip"].fac_kind == "inv"
+    assert model.film_systems["disk"].lu_piv[2] is not None
+
+
+def test_transport_sweep_inverted_from_lu_matches_lu(on_the_card):
+    """``solve_many`` of an inhomogeneous-Lambda strip with terminals and
+    vortices, its systems inverted from their LU, against the same call on
+    LU factors, at float64."""
+    device = _transport_device()
+    on_the_card.setattr(linalg, "LU_MAX_N_TPU", 10**9)
+    lu_model = _transport_model(device)
+    assert {d.fac_kind for d in lu_model.film_data.values()} == {"lu"}
+    on_the_card.setattr(linalg, "LU_MAX_N_TPU", 0)
+    model = _transport_model(device)
+    _inverted_from_lu(model)
+    want, got = _transport_sweep(lu_model), _transport_sweep(model)
+    for name in want:
+        assert _rel(got[name], want[name]) <= SOLVE_TOL
+
+
+def test_transport_model_inverted_from_lu_survives_hdf5(on_the_card):
+    """A model whose strip is inverted from its LU saves without ``inv_w``
+    and loads with the same factors: its sweep is bitwise the same."""
+    h5py = pytest.importorskip("h5py")
+    model = _transport_model(_transport_device())
+    _inverted_from_lu(model)
+    buffer = io.BytesIO()
+    with h5py.File(buffer, "w") as f:
+        model.to_hdf5(f)
+        assert "inv_M" in f["film_systems/strip"] and "inv_w" not in f["film_systems/strip"]
+        assert "inv_w" in f["film_systems/disk"]
+    with h5py.File(buffer, "r") as f:
+        loaded = st.FactorizedModel.from_hdf5(f, torch_device="cpu")
+    _inverted_from_lu(loaded)
+    assert torch.equal(loaded.film_systems["strip"].lu_piv[1], model.film_systems["strip"].lu_piv[1])
+    want, got = _transport_sweep(model), _transport_sweep(loaded)
+    for name in want:
+        assert np.array_equal(got[name], want[name])
+
+
+@pytest.fixture(scope="module")
+def inhomogeneous():
     """A coarse copy of ``chip_smoke.py`` phase 8's strip (20 x 8 with a
     hole, a Gaussian weak spot in Lambda) beside a homogeneous disk: the
-    JAX package's strip system and weights."""
+    JAX package's device, strip system and weights."""
 
     def weak_spot(x, y, x0=2.0, y0=1.0, sigma=2.0, depth=0.5, base=1.0):
         return base * (1 + depth * np.exp(-((x - x0) ** 2 + (y - y0) ** 2) / (2 * sigma**2)))
@@ -477,21 +613,25 @@ def _inhomogeneous_film_system():
     fs = model.film_systems["strip"]
     assert model.film_info["strip"].lambda_info.inhomogeneous
     w = np.asarray(model.film_info["strip"].weights)[fs.indices]
-    return device, np.asarray(fs.A), w
+    return device, np.array(fs.A), w
 
 
-def test_inhomogeneous_lambda_misses_the_bar_on_the_routes_and_takes_lu(on_the_card):
+def test_inhomogeneous_lambda_misses_the_bar_on_the_symmetric_part_and_meets_it_inverted_from_lu(
+    inhomogeneous, on_the_card,
+):
     """The measurement behind the port's one deviation from the JAX
     package's routes: with a ``(grad Lambda) . grad`` term ``A / w`` is
     not symmetric, and the JAX route's inverse of its symmetric part
     leaves ``||I + M A||`` ~0.3 on the strip: unrefined (the sweep's inner
     rounds) its streams are off by ~8e-2, and after the final round's two
-    refinement steps the residual is still above the 1e-4 bar (1.5e-4),
-    where LU's refined solve reaches the float64 floor.  So a film with
-    an inhomogeneous Lambda is factorized by LU at any size, decided from
+    refinement steps the residual is still above the 1e-4 bar (1.5e-4).
+    The inverse of the full system from its LU, the port's route for such
+    a film on the card, solves to the float64 floor unrefined and
+    refined, as LU's refined solve does.  The route is decided from
     ``lambda_info.inhomogeneous`` before the factorization; the
-    homogeneous film of the same device takes the route."""
-    device, A, w = _inhomogeneous_film_system()
+    homogeneous film of the same device takes the Cholesky route's
+    ``"inv"``, with its weights."""
+    device, A, w = inhomogeneous
     M = np.asarray(jlinalg._jax_chol_explicit_inverse_from_A(jnp.asarray(A), jnp.asarray(w)))
     h = np.random.default_rng(1).standard_normal((A.shape[0], 4))
     x_lu = np.linalg.solve(-A, h)
@@ -501,13 +641,23 @@ def test_inhomogeneous_lambda_misses_the_bar_on_the_routes_and_takes_lu(on_the_c
         x = x + M @ (h + A @ x)
     residual = np.linalg.norm(h + A @ x) / np.linalg.norm(h)
     assert residual > RESIDUAL_BAR, residual
+    inverse = linalg.factor_system(torch.as_tensor(A))
+    assert inverse[0] == "inv" and inverse[2] is None
+    assert np.linalg.norm(np.eye(len(A)) + inverse[1].numpy() @ A) < 1e-10
+    assert _rel(linalg.lu_solve(inverse, torch.as_tensor(h)), x_lu) < 1e-10
+    on_the_card.setattr(linalg, "_on_cpu", lambda A: True)
     lu = linalg.factor_system(torch.as_tensor(A))
-    x = linalg.lu_solve_refined(torch.as_tensor(A), lu, torch.as_tensor(h)).numpy()
-    assert np.linalg.norm(h + A @ x) / np.linalg.norm(h) < 1e-12
+    assert linalg.factor_kind(lu) == "lu"
+    on_the_card.setattr(linalg, "_on_cpu", lambda A: False)
+    for factors in (inverse, lu):
+        x = linalg.lu_solve_refined(torch.as_tensor(A), factors, torch.as_tensor(h)).numpy()
+        assert np.linalg.norm(h + A @ x) / np.linalg.norm(h) < 1e-12
     model = st.factorize_model(device=st.device_from_reference(device), current_units="uA",
                                torch_device="cpu")
-    assert model.film_data["strip"].fac_kind == "lu"
+    assert model.film_data["strip"].fac_kind == "inv" and model.film_systems["strip"].lu_piv[2] is None
     assert model.film_data["disk"].fac_kind == "inv"
+    disk = model.film_systems["disk"]
+    assert torch.equal(disk.lu_piv[2], model.film_info["disk"].weights[torch.as_tensor(disk.indices)])
 
 
 @pytest.mark.parametrize("route", ["inv", "schur"])

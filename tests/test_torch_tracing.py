@@ -25,6 +25,16 @@ torch.set_num_threads(2)
 
 FIELDS = (0.1, 0.4, 0.7)
 ITERATIONS = 1
+#: Triangular solves of one refined film solve (``refine_steps`` = 2): the
+#: solve and one per refinement step, each on packed LU factors.
+REFINED = 1 + 2
+#: The LU film solves of the two rings' calls: ``solve_many`` leaves its
+#: first round unrefined (one solve per film) and refines its last;
+#: ``solve`` refines every one of its ``ITERATIONS + 1`` rounds; the scan
+#: refines its sample film's one solve.
+SWEEP_SOLVES = 2 * (1 + REFINED)
+SOLVE_SOLVES = 2 * (ITERATIONS + 1) * REFINED
+SCAN_SOLVES = REFINED
 PROGRAM_SPANS = {
     "solve_many", "solve", "factorize_model", "susceptibility_scan", "sweep.inputs",
     "sweep.film_solve", "sweep.coupling", "sweep.self_field", "sweep.results", "sweep.to_host",
@@ -219,12 +229,19 @@ def test_spans_are_host_operations_of_the_profiler(setup):
 
 
 def test_counters_read_zero_on_the_cpu(setup):
+    """No copy crosses to or from a card; the one counter that moves is the
+    film solves' ``triangular_solves``, since every system on the CPU is
+    LU-factorized."""
     with _profiled():
         for call in _calls(setup).values():
             call()
     snap = tracing.snapshot()
-    assert snap["counters"] == {}
-    assert all(s.counts == {} for s in snap["spans"])
+    assert snap["counters"] == {tracing.TRIANGULAR_SOLVES: SWEEP_SOLVES + SOLVE_SOLVES + SCAN_SOLVES}
+    counted = [s for s in snap["spans"] if s.counts]
+    assert {s.name for s in counted} == {"sweep.film_solve"}
+    assert all(set(s.counts) == {tracing.TRIANGULAR_SOLVES} for s in counted)
+    total = snap["counters"][tracing.TRIANGULAR_SOLVES]
+    assert sum(s.counts[tracing.TRIANGULAR_SOLVES] for s in counted) == total
 
 
 def test_solutions_own_device_copies_and_check_no_ring(setup):
@@ -336,6 +353,9 @@ def _bias_sweep(model, driven=True):
 #: last terminal's is the centring direction), two solves each in a film
 #: with a hole.
 TERMINAL_SOLVES = 2 * 2
+#: The strip's triangular solves per driven call on LU factors: each
+#: bootstrap solve refined, and the sweep's one refined film solve.
+STRIP_TRIANGULAR = TERMINAL_SOLVES * REFINED + REFINED
 
 
 def test_terminal_and_vortex_spans_open_once_per_driven_sweep(transport):
@@ -350,8 +370,12 @@ def test_terminal_and_vortex_spans_open_once_per_driven_sweep(transport):
     assert [name for name, _ in tree].count("sweep.terminals") == 1
     assert [name for name, _ in tree].count("sweep.vortices") == 1
     terminals = next(s for s in spans if s.name == "sweep.terminals")
-    assert terminals.counts == {tracing.TERMINAL_SOLVES: TERMINAL_SOLVES}
-    assert tracing.snapshot()["counters"] == {tracing.TERMINAL_SOLVES: TERMINAL_SOLVES}
+    assert terminals.counts == {
+        tracing.TERMINAL_SOLVES: TERMINAL_SOLVES, tracing.TRIANGULAR_SOLVES: TERMINAL_SOLVES * REFINED
+    }
+    assert tracing.snapshot()["counters"] == {
+        tracing.TERMINAL_SOLVES: TERMINAL_SOLVES, tracing.TRIANGULAR_SOLVES: STRIP_TRIANGULAR
+    }
 
 
 def test_terminal_and_vortex_spans_are_absent_without_their_drives(transport):
@@ -360,7 +384,7 @@ def test_terminal_and_vortex_spans_are_absent_without_their_drives(transport):
     snap = tracing.snapshot()
     names = {s.name for s in snap["spans"]}
     assert "solve_many" in names and not names & {"sweep.terminals", "sweep.vortices"}
-    assert snap["counters"] == {}
+    assert snap["counters"] == {tracing.TRIANGULAR_SOLVES: REFINED}
 
 
 @pytest.mark.parametrize("driven", [True, False], ids=["driven", "fields"])
@@ -472,8 +496,9 @@ def test_transfer_counters_of_a_sweep_on_the_card(cuda):
         "h2d_bytes": sum(B * (sites[f] + holes[f]) * size for f in sites),
         "d2h_bytes": sum(6 * B * sites[f] * size for f in sites),
         "host_syncs": 5 * len(sites),
+        "triangular_solves": SWEEP_SOLVES,
     }
-    assert got["counted"] == ["sweep.inputs", "sweep.to_host"]
+    assert got["counted"] == ["sweep.film_solve", "sweep.inputs", "sweep.to_host"]
     assert got["device_events"] and not set(got["device_events"]) & PROGRAM_SPANS
 
 
@@ -536,4 +561,5 @@ def test_transfer_counters_of_a_transport_sweep_on_the_card(cuda):
         "d2h_bytes": 6 * B * n * size + units * (bootstrap_down + size * n),
         "host_syncs": 5 + units * (2 + len(holes) + 2 + 1),
         "terminal_solves": units * 2,
+        "triangular_solves": units * 2 * REFINED + REFINED,
     }
