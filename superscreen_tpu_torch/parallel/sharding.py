@@ -25,7 +25,8 @@ array laid out over the mesh, the port returns the gathered result on
 ``mesh.devices[0, 0]``, the slot that stands for the JAX array's global
 view; film data and inputs split over the data axis are
 :class:`ShardedFilmData` and :class:`DataSharded`, and
-``sweep._run_sweep`` runs the unchanged single-device sweep once per data
+``sweep._run_sweep``, the one round loop behind ``solve()`` and
+``solve_many()``, runs the unchanged single-device sweep once per data
 row on them.  The rows run one after another from the host with no
 synchronisation between them, so on distinct cards they overlap; a film
 solved by CG or BiCGStab reads its residual on the host every few

@@ -3,10 +3,12 @@
 Counterpart of ``superscreen_tpu/solver/solve.py`` on its device-resident
 path: :func:`factorize_model` builds and factorizes every film system on
 the torch device (:func:`superscreen_tpu_torch.ops.linalg.factor_system`), with the model's terminal currents, circulating currents
-and vortices; :func:`solve` runs the initial per-film solve plus
-``iterations`` rounds of self-consistent inter-film coupling (exact or
-FFT, as :func:`superscreen_tpu_torch.solve_many` dispatches) and returns
-one :class:`Solution` per round.
+and vortices; :func:`solve` samples the applied field on the host, runs
+the initial per-film solve plus ``iterations`` rounds of self-consistent
+inter-film coupling (exact or FFT) on the sweep path it shares with
+:func:`superscreen_tpu_torch.solve_many` (``sweep._sweep_on_device``
+with every round kept, then its ``to_host``), and returns one
+:class:`Solution` per round.
 """
 
 import contextlib
@@ -26,13 +28,9 @@ from ..solution import FilmSolution, Solution, Vortex
 from ..sources import ConstantField
 from ..sweep import (
     FilmSweepData,
-    _attach_fft_grids,
     _check_coupling,
-    _get_sweep_data,
-    _resolve_coupling,
-    _run_sweep_history,
+    _sweep_on_device,
     film_sweep_data,
-    vortex_flux_quantum,
     vortex_snapshot,
 )
 from .solve_film import LinearSystem, TerminalSystems, factorize_linear_systems, solve_film
@@ -553,40 +551,27 @@ def solve(
             )
             for name in films
         }
-    coupled = len(films) >= 2 and iterations >= 1
-    coupling = "exact" if high_precision else _resolve_coupling(model, films, iterations, coupling)
-    with highest_matmul_precision():
-        film_data = _get_sweep_data(solve_model)
-        if coupling == "fft":
-            film_data = _attach_fft_grids(model, film_data, films)
-        gs, Js, selfs, others = _run_sweep_history(
-            film_data,
-            Hz,
-            I_circ,
-            vortex_flux_quantum(device, current_units),
-            iterations if coupled else 0,
-            2,
-            check_inversion=check_inversion,
-            coupling=coupling,
-        )
+    if len(films) < 2 or iterations < 1:
+        iterations = 0  # nothing to couple: one round
+    swept = _sweep_on_device(
+        solve_model, Hz, I_circ, iterations=iterations, refine_steps=2,
+        coupling="exact" if high_precision else coupling, keep_history=True,
+        check_inversion=check_inversion,
+    )
     with tracing.span("sweep.results"):
-        with tracing.span("sweep.to_host"):
-            gs, Js, selfs, others = (
-                {name: tracing.to_host(t).numpy() for name, t in d.items()}
-                for d in (gs, Js, selfs, others)
-            )
+        gs, Js, selfs, others = swept.to_host(field_conversion)
         inv = 1.0 / field_conversion
+        applied = {name: applied_fields[name] * inv for name in films}
         vortex_list = [v for vs in model.vortices.values() for v in vs]
-        rounds = range(iterations + 1 if coupled else 1)
         with _SolutionSink(device, save_path, return_solutions) as sink:
-            for i in _progress(rounds, "Solutions", progress_bar):
+            for i in _progress(range(iterations + 1), "Solutions", progress_bar):
                 film_solutions = {
                     name: FilmSolution(
                         stream=gs[name][i, 0],
                         current_density=Js[name][i, 0],
-                        applied_field=applied_fields[name] * inv,
-                        self_field=selfs[name][i, 0] * inv,
-                        field_from_other_films=others[name][i, 0] * inv if i > 0 else None,
+                        applied_field=applied[name],
+                        self_field=selfs[name][i, 0],
+                        field_from_other_films=others[name][i, 0] if i > 0 else None,
                     )
                     for name in films
                 }

@@ -17,8 +17,17 @@ with ``SUPERSCREEN_TPU_PAIR_COUPLING=1``), or the FFT transfer of
 cost model fitted on the card (:func:`_resolve_auto_coupling`).  The
 self-field of a low-memory film is applied matrix-free through
 ``q_apply``, that of a film with terminals through the in-film
-Biot-Savart sum.  All tensors stay on the model's torch device; results
-come back to the host once per quantity.
+Biot-Savart sum.
+
+:func:`solve_many` and :func:`superscreen_tpu_torch.solve` share one
+path from their inputs on the torch device to the host arrays: the
+device half :func:`_sweep_on_device` (the film data brought up to date,
+the one round loop :func:`_run_sweep`, with or without its history, and
+the float64 polish) and the results half :meth:`_DeviceSweep.to_host`,
+which brings each quantity back to the host once, inside one
+``sweep.to_host`` span.  Each entry point keeps only its own argument
+checks, its ``sweep.inputs`` block and its packaging (a
+:class:`SweepResult`, or one :class:`Solution` per round).
 """
 
 import logging
@@ -549,69 +558,6 @@ def _run_data_rows(runner, film_data: ShardedFilmData, Hz_applied, I_circ, *args
     )
 
 
-def _run_sweep_history(
-    film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
-    check_inversion: bool = False, coupling: str = "exact",
-):
-    """The initial per-film solves plus ``iterations`` coupling rounds,
-    recording every round, each at full refinement.
-
-    Returns per-film dicts of stacked tensors with a leading history axis
-    of length ``iterations + 1``: ``gs (I+1, B, n)``, ``Js (I+1, B, n, 2)``,
-    ``self_fields (I+1, B, n)`` and ``others (I+1, B, n)`` (``others[0]``
-    is zero: the initial solve sees only the applied field).  Film data
-    placed on a mesh (:func:`parallel.sharding.sharded_film_data`) runs
-    once per data row (:func:`_run_data_rows`).
-    """
-    if isinstance(film_data, ShardedFilmData):
-        return _run_data_rows(
-            _run_sweep_history, film_data, Hz_applied, I_circ, vortex_flux, iterations,
-            refine_steps, check_inversion, coupling, batch_axis=1,
-        )
-    films = list(film_data)
-    gs = {name: [] for name in films}
-    Js = {name: [] for name in films}
-    others = {name: [torch.zeros_like(Hz_applied[name])] for name in films}
-    for name in films:
-        g, J = _solve_film_batch(
-            film_data[name], Hz_applied[name], I_circ[name], vortex_flux, refine_steps,
-            check_inversion,
-        )
-        gs[name].append(g)
-        Js[name].append(J)
-    for _ in range(iterations):
-        new_others = _coupling_round(
-            film_data,
-            films,
-            {name: gs[name][-1] for name in films},
-            {name: Js[name][-1] for name in films},
-            Hz_applied,
-            coupling,
-        )
-        for name in films:
-            g, J = _solve_film_batch(
-                film_data[name],
-                Hz_applied[name] + new_others[name],
-                I_circ[name],
-                vortex_flux,
-                refine_steps,
-                check_inversion,
-            )
-            gs[name].append(g)
-            Js[name].append(J)
-            others[name].append(new_others[name])
-    gs = {name: torch.stack(v) for name, v in gs.items()}
-    Js = {name: torch.stack(v) for name, v in Js.items()}
-    others = {name: torch.stack(v) for name, v in others.items()}
-    # One batched self-field product per film over the whole history.
-    self_fields = {}
-    for name in films:
-        H, B, n = gs[name].shape
-        flat = gs[name].reshape(H * B, n)
-        self_fields[name] = _self_field_batch(film_data[name], flat).reshape(H, B, n)
-    return gs, Js, self_fields, others
-
-
 def _inner_refine_steps(refine_steps: int) -> int:
     """Refinement steps for the *inner* self-consistent rounds of a sweep
     that keeps only its final state: 0 unless
@@ -636,41 +582,64 @@ def _inner_refine_steps(refine_steps: int) -> int:
 
 def _run_sweep(
     film_data, Hz_applied, I_circ, vortex_flux: float, iterations: int, refine_steps: int,
-    coupling: str = "exact",
+    coupling: str = "exact", *, keep_history: bool = False, check_inversion: bool = False,
 ):
-    """The sweep that keeps only its final state: the initial solves and
-    all but the last coupling round refine with
-    :func:`_inner_refine_steps`, the last round with ``refine_steps``, and
-    the self-field is computed once, from the final streams.
+    """The initial per-film solves, ``iterations`` coupling rounds each
+    followed by the film solves, and the self-fields.
 
-    Returns ``streams (B, n)``, ``Js (B, n, 2)``, ``self_fields (B, n)``
-    and ``others (B, n)`` per film.  Film data placed on a mesh runs once
-    per data row (:func:`_run_data_rows`)."""
+    Without ``keep_history`` only the final state is kept: the initial
+    solves and all but the last round refine with
+    :func:`_inner_refine_steps`, the last round with ``refine_steps``, and
+    the self-field is computed once, from the final streams.  Returns
+    ``streams (B, n)``, ``Js (B, n, 2)``, ``self_fields (B, n)`` and
+    ``others (B, n)`` per film.
+
+    With ``keep_history`` every round refines ``refine_steps`` times and is
+    kept: the same per-film dicts with a leading history axis of length
+    ``iterations + 1`` (``others[0]`` is zero: the initial solve sees only
+    the applied field), and the self-field one batched product per film
+    over the whole history.
+
+    ``check_inversion`` checks every film solve (:func:`_check_inversion`).
+    Film data placed on a mesh (:func:`parallel.sharding.sharded_film_data`)
+    runs once per data row (:func:`_run_data_rows`)."""
     if isinstance(film_data, ShardedFilmData):
         return _run_data_rows(
             _run_sweep, film_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
-            coupling,
+            coupling, keep_history=keep_history, check_inversion=check_inversion,
+            batch_axis=1 if keep_history else 0,
         )
     films = list(film_data)
-    inner_refine = _inner_refine_steps(refine_steps) if iterations >= 1 else refine_steps
-    streams, Js = {}, {}
+    inner_refine = refine_steps
+    if iterations >= 1 and not keep_history:
+        inner_refine = _inner_refine_steps(refine_steps)
+    streams, Js, history = {}, {}, []
     others = {name: torch.zeros_like(Hz_applied[name]) for name in films}
-    for name in films:
-        streams[name], Js[name] = _solve_film_batch(
-            film_data[name], Hz_applied[name], I_circ[name], vortex_flux, inner_refine
-        )
-    for it in range(iterations):
-        final = it == iterations - 1
-        others = _coupling_round(film_data, films, streams, Js, Hz_applied, coupling)
+    for it in range(max(iterations, 0) + 1):
+        if it:
+            others = _coupling_round(film_data, films, streams, Js, Hz_applied, coupling)
         for name in films:
             streams[name], Js[name] = _solve_film_batch(
                 film_data[name],
-                Hz_applied[name] + others[name],
+                Hz_applied[name] + others[name] if it else Hz_applied[name],
                 I_circ[name],
                 vortex_flux,
-                refine_steps if final else inner_refine,
+                refine_steps if it == iterations else inner_refine,
+                check_inversion,
             )
-    self_fields = {name: _self_field_batch(film_data[name], streams[name]) for name in films}
+        if keep_history:
+            history.append((dict(streams), dict(Js), others))
+    if keep_history:
+        streams, Js, others = (
+            {name: torch.stack([kept[k][name] for kept in history]) for name in films}
+            for k in range(3)
+        )
+    # One batched self-field product per film, over the whole history if
+    # it is kept.
+    self_fields = {
+        name: _self_field_batch(film_data[name], g.reshape(-1, g.shape[-1])).reshape(g.shape)
+        for name, g in streams.items()
+    }
     return streams, Js, self_fields, others
 
 
@@ -1072,6 +1041,95 @@ def _resolve_coupling(model, films, iterations, coupling: str) -> str:
     return coupling
 
 
+@dataclass
+class _DeviceSweep:
+    """A sweep's results on the torch device, as :func:`_sweep_on_device`
+    leaves them: ``outputs``, ``(streams, Js, self_fields, others)`` as
+    :func:`_run_sweep` returns them; the float64 polish's ``report``; the
+    flat ``(B, n_vortices)`` amplitudes of a ``vortex_nPhi0`` sweep; the
+    per-point ``terminal_currents`` as floats (each None where not asked
+    for)."""
+
+    outputs: tuple
+    report: Optional[dict] = None
+    vortex_nPhi0: Optional[np.ndarray] = None
+    terminal_currents: Optional[list] = None
+
+    def to_host(self, field_conversion: float, result_dtype=None, applied=None):
+        """The results half of :func:`solve_many` and
+        :func:`superscreen_tpu_torch.solve`: ``outputs`` and, where given,
+        the applied fields ``applied`` (``{film: (B, n)}`` tensors) as host
+        NumPy arrays, all copied inside the one ``sweep.to_host`` span.  The
+        streams, current densities and self-fields are then cast to
+        ``result_dtype`` (where given), and the field quantities divided by
+        ``field_conversion`` into the caller's units, once per film
+        array."""
+        tensors = self.outputs if applied is None else (*self.outputs, applied)
+        with tracing.span("sweep.to_host"):
+            host = [{name: tracing.to_host(t).numpy() for name, t in d.items()} for d in tensors]
+        if result_dtype is not None:
+            host[:3] = (
+                {name: a.astype(result_dtype, copy=False) for name, a in d.items()}
+                for d in host[:3]
+            )
+        inv = 1.0 / field_conversion
+        host[2:] = ({name: a * inv for name, a in d.items()} for d in host[2:])
+        return host
+
+
+def _sweep_on_device(
+    model, Hz, I_circ, *, iterations: int, refine_steps: int, coupling: str,
+    keep_history: bool = False, check_inversion: bool = False, vortex_nPhi0=None,
+    terminal_currents=None, mesh=None, final_refine: int = 0, result_dtype=None,
+) -> _DeviceSweep:
+    """The sweep from its drive on the torch device to its results there,
+    as :func:`solve_many` and :func:`superscreen_tpu_torch.solve` share it:
+    the coupling resolved, the model's film data with the FFT grids, the
+    per-point vortex amplitudes and terminal drives folded in and placed on
+    ``mesh``'s data rows, the rounds of :func:`_run_sweep`, and the float64
+    polish of ``final_refine`` steps
+    (:func:`superscreen_tpu_torch.certify.refine_sweep_f64`).  ``Hz``
+    ``{film: (B, n)}`` and ``I_circ`` ``{film: (B, n_holes)}`` are in
+    solver units on the model's torch device."""
+    from .solver.solve import highest_matmul_precision
+
+    films = list(model.device.films)
+    B = next(iter(Hz.values())).shape[0]
+    coupling = _resolve_coupling(model, films, iterations, coupling)
+    report = vortex_amps = term_dicts = None
+    with highest_matmul_precision():
+        film_data = _get_sweep_data(model)
+        if coupling == "fft":
+            film_data = _attach_fft_grids(model, film_data, films)
+        if vortex_nPhi0 is not None:
+            film_data, vortex_amps = _apply_vortex_amplitudes(model, film_data, vortex_nPhi0, B)
+        if terminal_currents is not None:
+            film_data, term_dicts = _apply_terminal_sweeps(
+                model, film_data, terminal_currents, B, model.current_units
+            )
+        run_data = film_data
+        if mesh is not None:
+            from .parallel.sharding import sharded_film_data
+
+            run_data = sharded_film_data(film_data, mesh, pad_to_shardable=False)
+        outputs = _run_sweep(
+            run_data, Hz, I_circ, vortex_flux_quantum(model.device, model.current_units),
+            iterations, refine_steps, coupling, keep_history=keep_history,
+            check_inversion=check_inversion,
+        )
+        if final_refine:
+            from .certify import refine_sweep_f64, sweep_outputs_from_streams
+
+            streams, _, _, others = outputs
+            streams, report = refine_sweep_f64(
+                film_data, streams, others if len(films) > 1 and iterations > 0 else None,
+                Hz, I_circ, steps=final_refine, result_dtype=result_dtype or "float64",
+            )
+            # Current densities and self-fields follow the polished streams.
+            outputs = (streams, *sweep_outputs_from_streams(film_data, streams), others)
+    return _DeviceSweep(outputs, report, vortex_amps, term_dicts)
+
+
 @tracing.traced("solve_many", entry=True)
 def solve_many(
     device=None,
@@ -1173,7 +1231,7 @@ def solve_many(
     Returns:
         A :class:`SweepResult`, or a list of them if ``keep_history``.
     """
-    from .solver.solve import factorize_model, highest_matmul_precision, resolve_torch_device
+    from .solver.solve import factorize_model, resolve_torch_device
     from .solver.utils import currents_to_floats, field_conversion_factor, torch_dtype
 
     torch_device = resolve_torch_device(torch_device)
@@ -1268,78 +1326,36 @@ def solve_many(
             ).reshape(B, len(model.film_info[name].hole_indices))
             for name in films
         }
-    vortex_flux = vortex_flux_quantum(device, current_units)
+    swept = _sweep_on_device(
+        model, Hz_applied, I_circ, iterations=iterations, refine_steps=refine_steps,
+        coupling=coupling, keep_history=keep_history, vortex_nPhi0=vortex_nPhi0,
+        terminal_currents=terminal_currents, mesh=mesh, final_refine=final_refine,
+        result_dtype=result_dtype,
+    )
     multi = len(films) > 1 and iterations > 0
-    inv = 1.0 / field_conversion
-
-    def to_host(tensors):
-        return {name: tracing.to_host(t).numpy() for name, t in tensors.items()}
-
-    coupling = _resolve_coupling(model, films, iterations, coupling)
-    with highest_matmul_precision():
-        film_data = _get_sweep_data(model)
-        if coupling == "fft":
-            film_data = _attach_fft_grids(model, film_data, films)
-        vortex_amps_flat = None
-        if vortex_nPhi0 is not None:
-            film_data, vortex_amps_flat = _apply_vortex_amplitudes(
-                model, film_data, vortex_nPhi0, B
-            )
-        term_dicts = None
-        if terminal_currents is not None:
-            film_data, term_dicts = _apply_terminal_sweeps(
-                model, film_data, terminal_currents, B, current_units
-            )
-        runner = _run_sweep_history if keep_history else _run_sweep
-        run_data = film_data
-        if mesh is not None:
-            from .parallel.sharding import sharded_film_data
-
-            run_data = sharded_film_data(film_data, mesh, pad_to_shardable=False)
-        streams, Js, self_fields, others = runner(
-            run_data, Hz_applied, I_circ, vortex_flux, iterations, refine_steps,
-            coupling=coupling,
-        )
-        polish_report = None
-        if final_refine:
-            from .certify import refine_sweep_f64, sweep_outputs_from_streams
-
-            streams, polish_report = refine_sweep_f64(
-                film_data, streams, others if multi else None, Hz_applied, I_circ,
-                steps=final_refine, result_dtype=result_dtype or "float64",
-            )
-            # Current densities and self-fields follow the polished streams.
-            Js, self_fields = sweep_outputs_from_streams(film_data, streams)
     with tracing.span("sweep.results"):
-        with tracing.span("sweep.to_host"):
-            streams, Js, self_fields, others, applied_host = (
-                to_host(d) for d in (streams, Js, self_fields, others, Hz_applied)
-            )
-        applied_host = {name: t * inv for name, t in applied_host.items()}
-        if result_dtype is not None and not final_refine:
-            dt = np.dtype(result_dtype)
-            streams, Js, self_fields = (
-                {name: a.astype(dt) for name, a in d.items()} for d in (streams, Js, self_fields)
-            )
+        streams, Js, self_fields, others, applied_host = swept.to_host(
+            field_conversion, result_dtype, Hz_applied
+        )
 
         def result(pick) -> SweepResult:
             return SweepResult(
                 model=model,
                 streams={name: pick(a) for name, a in streams.items()},
                 current_densities={name: pick(a) for name, a in Js.items()},
-                self_fields={name: pick(a) * inv for name, a in self_fields.items()},
+                self_fields={name: pick(a) for name, a in self_fields.items()},
                 applied_fields=applied_host,
-                other_fields={name: pick(a) * inv for name, a in others.items()} if multi else None,
+                other_fields={name: pick(a) for name, a in others.items()} if multi else None,
                 field_units=field_units,
                 current_units=current_units,
                 applied_field_funcs=applied_field_funcs,
                 circulating_currents=circ_dicts,
-                vortex_nPhi0=vortex_amps_flat,
-                terminal_currents=term_dicts,
+                vortex_nPhi0=swept.vortex_nPhi0,
+                terminal_currents=swept.terminal_currents,
             )
 
         if keep_history:
             return [result(lambda a, it=it: a[it]) for it in range(iterations + 1)]
         final = result(lambda a: a)
-        final.final_refine_report = polish_report
+        final.final_refine_report = swept.report
         return final

@@ -201,26 +201,41 @@ def test_result_dtype(models, result_dtype):
     _assert_results_match(result, ref, rtol=1e-6 if result_dtype == "float32" else RTOL)
 
 
-@pytest.mark.parametrize("index", [0, 1])
-def test_sweep_point_matches_the_port_solve(devices, models, index):
+@pytest.mark.parametrize(
+    "index, round_",
+    [(0, None), (1, None)] + [(index, r) for index in (0, 1) for r in range(3)],
+    ids=["0", "1"] + [f"{index}-round{r}" for index in (0, 1) for r in range(3)],
+)
+def test_sweep_point_matches_the_port_solve(devices, models, index, round_):
+    """A sweep point against ``solve()`` on the same drive: the final state
+    (``round_`` None), or one round of ``solve()``'s against the same round
+    of ``solve_many(keep_history=True)``."""
     _, model = models
     values = [0.5, 2.0]
     model.set_circulating_currents(CIRC)
     try:
-        solution = st.solve(
+        solutions = st.solve(
             model=model, applied_field=st.sources.ConstantField(values[index]),
             iterations=2, torch_device="cpu",
-        )[-1]
+        )
     finally:
         model.set_circulating_currents({})
     result = st.solve_many(
         model=model, applied_fields=_fields(st, values), circulating_currents=[CIRC] * 2,
-        iterations=2, torch_device="cpu",
+        iterations=2, keep_history=round_ is not None, torch_device="cpu",
     )
-    point = result.solution(index)
+    if round_ is None:
+        solution, point = solutions[-1], result.solution(index)
+    else:
+        assert len(solutions) == len(result) == 3
+        solution, point = solutions[round_], result[round_].solution(index)
     for name, fs in solution.film_solutions.items():
         for field in ("stream", "current_density", "self_field", "field_from_other_films"):
             a = getattr(point.film_solutions[name], field)
+            if round_ == 0 and field == "field_from_other_films":
+                # The first round sees only the applied field.
+                assert fs.field_from_other_films is None and not np.any(a), name
+                continue
             assert _max_rel(a, getattr(fs, field)) <= 1e-9, (name, field)
 
 
